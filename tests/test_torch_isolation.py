@@ -1,0 +1,78 @@
+# -*- coding: utf-8 -*-
+"""The port stands alone: no JAX, nothing of the JAX package, nothing the GPU
+machine may lack on the main path, and no silent move to the CPU."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import climsr_tpu_torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = Path(climsr_tpu_torch.__file__).resolve().parent
+MODULES = sorted(m.name for m in pkgutil.walk_packages([str(PORT)], prefix="climsr_tpu_torch."))
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    """In a fresh interpreter: import every port module (and chip_smoke.py);
+    no jax, flax or climsr_tpu module is loaded, and none of the packages the
+    GPU machine may lack (cv2, pandas, yaml, PIL)."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for name in {MODULES + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'climsr_tpu', 'cv2', 'pandas', 'yaml', 'PIL'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 25
+
+
+def test_sources_import_no_jax_and_nothing_of_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|climsr_tpu)(\.|\s|$)", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in pattern.finditer(f.read_text())]
+    assert not offenders
+
+
+def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
+    """``device=None`` means CUDA: without a card every entry point raises
+    instead of running on the CPU."""
+    from climsr_tpu_torch.inference.run import inference_on_full_images, load_generator
+    from climsr_tpu_torch.inference.tiled import TiledSR, whole_frame_sr
+    from climsr_tpu_torch.models import create_generator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: create_generator("esrgan"),
+        lambda: load_generator(str(tmp_path / "missing.ckpt"), "esrgan"),
+        lambda: TiledSR(lambda *a: a[0], scale=4, tile_size=16, overlap=4),
+        lambda: whole_frame_sr(lambda *a: a[0], np.zeros((1, 4, 4, 1), np.float32)),
+        lambda: inference_on_full_images(torch.nn.Identity(), None, str(tmp_path / "o"), "esrgan"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    model = create_generator("esrgan", device="cpu", nf=8, nb=1, gc=8)
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_chip_smoke_exits_nonzero_and_prints_no_result_without_a_card(tmp_path):
+    """Alone in a directory (no package beside it) and here without CUDA."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        out = subprocess.run([sys.executable, str(script)], capture_output=True, text=True, timeout=300,
+                             cwd=script.parent, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
