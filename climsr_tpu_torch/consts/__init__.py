@@ -5,5 +5,7 @@ from climsr_tpu_torch.consts import batch_items  # noqa: F401
 from climsr_tpu_torch.consts import cruts  # noqa: F401
 from climsr_tpu_torch.consts import datasets_and_preprocessing  # noqa: F401
 from climsr_tpu_torch.consts import models  # noqa: F401
+from climsr_tpu_torch.consts import stages  # noqa: F401
 from climsr_tpu_torch.consts import stats  # noqa: F401
+from climsr_tpu_torch.consts import training  # noqa: F401
 from climsr_tpu_torch.consts import world_clim  # noqa: F401

@@ -1,7 +1,18 @@
 // Fused residual-dense-block forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_rdb_t_kernel` / `_rdb_t_forward_body`
-// (climsr_tpu/ops/pallas/rdb.py:190, :326). One launch computes one RDB:
+// Replaces two TPU kernels that share one body (`_rdb_t_forward_body`,
+// climsr_tpu/ops/pallas/rdb.py:326):
+//
+// - A, `_rdb_t_kernel` (rdb.py:190): the forward (entry `climsr_rdb_fwd`);
+// - B1, `_rdb_t_fwd_save_kernel` (rdb.py:315): the same forward that also
+//   writes the feature buffer feat = [x, h_1 .. h_4] (nf + 4*gc channels, in
+//   x's type, each h_k rounded exactly where the forward rounds it) as the
+//   residual of the backward (entry `climsr_rdb_fwd_save`). Like the TPU
+//   kernel it saves all nf + 4*gc channels, x included, so the backward reads
+//   one buffer; the copy is taken from the tile's centre in shared memory after
+//   the growth convs, 256 more bytes per pixel of traffic in bf16.
+//
+// One launch computes one RDB:
 //
 //   h_k = lrelu_0.2(conv3x3([x, h_1 .. h_{k-1}]) + b_k)        k = 1..4, gc channels each
 //   y5  = conv3x3([x, h_1 .. h_4]) + b_5                        nf channels
@@ -31,42 +42,22 @@
 //   each work item 2 pixels x 8 output channels, weights tap-major
 //   [tap][cin][cout] read through L1 (a warp-wide broadcast).
 //
-// Bound on this card: at the main path's shape (16 tiles of 128 x 128, nf=64,
+// Bound on this card (A): at the inference path's shape (16 tiles of 128 x 128, nf=64,
 // gc=16, bf16) one launch needs 65.2 GFLOP against 100 MB of traffic, so it is
 // bound by operations (66 us at the tensor cores' dense bf16 rate, 30 us of
 // memory). The design keeps every intermediate on chip, so the traffic stays
 // at x, x0 and out; what it pays instead is the halo recompute (~1.27x the
-// useful MACs at 16 x 16 tiles) and mma.sync instead of wgmma.
+// useful MACs at 16 x 16 tiles) and mma.sync instead of wgmma. B1 at the
+// training shape (192 x 64 x 32 x 32, bf16) needs 48.9 GFLOP (49 us) against
+// 126 MB (38 us), so it is bound by operations too.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "rdb_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kHalo = 5;  // one pixel for each of the five convs
-constexpr int kPad = 8;   // bf16 buffer: channels per pixel = nf + 4*gc + kPad
-using bf16 = __nv_bfloat16;
+using namespace rdb;
 
 // ---------------------------------------------------------------- bfloat16, tensor cores
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col); bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Growth conv epilogue: bias, LeakyReLU, round to bf16, into the buffer's
 // channel slice; zero at positions outside the image (SAME padding).
@@ -110,65 +101,10 @@ struct ResidualStore {
   }
 };
 
-// One conv3x3 over a rh x rw region (origin (r0, r0) in buffer coordinates)
-// as an implicit GEMM: M = the region's pixels, N = cout, K = 9 * cin. `w`
-// holds the conv's weights in fragment order: for each group q of 16 output
-// channels and each k-step s (16 of K = tap * cin + ci), 32 lanes x 16 bytes.
-template <class Epilogue>
-__device__ __forceinline__ void conv3x3_mma(const bf16* feat, int cp, int pw, int r0, int rh, int rw, int cin,
-                                            int cout, const uint4* __restrict__ w, const Epilogue& epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int npix = rh * rw, mgroups = (npix + 31) / 32, csteps = cin / 16, ksteps = 9 * csteps;
-  const int items = mgroups * (cout / 16);
-  for (int item = warp; item < items; item += kWarps) {
-    const int q = item / mgroups, mg = item % mgroups;
-    // the buffer row this lane feeds to ldmatrix, for each of the two M-tiles
-    int base[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      int m = mg * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      if (m >= npix) m = 0;  // rows past the region: any valid pixel, result dropped
-      base[mt] = ((r0 + m / rw) * pw + r0 + m % rw) * cp + (lane >> 4) * 8;
-    }
-    float acc[2][2][4] = {};
-    const uint4* wq = w + (size_t)q * ksteps * 32 + lane;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = ((tap / 3 - 1) * pw + (tap % 3 - 1)) * cp;
-#pragma unroll 2
-      for (int c = 0; c < csteps; ++c) {
-        const uint4 bw = __ldg(wq);
-        wq += 32;
-        unsigned a[2][4];
-        ldmatrix_x4(a[0], feat + base[0] + off + c * 16);
-        ldmatrix_x4(a[1], feat + base[1] + off + c * 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][0], a[mt], bw.x, bw.y);
-          mma_bf16(acc[mt][1], a[mt], bw.z, bw.w);
-        }
-      }
-    }
-    // accumulator rows g and g + 8 of each M-tile, channels 2t, 2t + 1 of each n-tile
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = mg * 32 + mt * 16 + g + 8 * half;
-        if (m >= npix) continue;
-        const int sy = r0 + m / rw, sx = r0 + m % rw;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          epi(sy, sx, q * 16 + nt * 8 + 2 * t, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-      }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     rdb_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x0, bf16* __restrict__ out,
-                        const uint4* __restrict__ w, const float* __restrict__ b, int H, int W, int nf, int gc,
-                        int th, int tw) {
+                        bf16* __restrict__ saved, const uint4* __restrict__ w, const float* __restrict__ b, int H,
+                        int W, int nf, int gc, int th, int tw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* feat = reinterpret_cast<bf16*>(smem_raw);
   const int ph = th + 2 * kHalo, pw = tw + 2 * kHalo, cp = nf + 4 * gc + kPad;
@@ -196,42 +132,26 @@ __global__ void __launch_bounds__(kThreads)
     wk += (size_t)(gc / 16) * (9 * cin / 16) * 32;
     __syncthreads();
   }
+  if (saved != nullptr) {  // B1: the tile's [x, h_1 .. h_4] to device memory, 16 bytes at a time
+    const int total = nf + 4 * gc, tv = total / 8;
+    for (int i = threadIdx.x; i < th * tw * tv; i += kThreads) {
+      const int v = i % tv, pix = i / tv, sy = pix / tw, sx = pix % tw;
+      const int gy = oy + kHalo + sy, gx = ox + kHalo + sx;
+      if (gy < H && gx < W)
+        *reinterpret_cast<uint4*>(saved + (img + (size_t)gy * W + gx) * total + v * 8) =
+            *reinterpret_cast<const uint4*>(feat + ((kHalo + sy) * pw + kHalo + sx) * cp + v * 8);
+    }
+  }
   const ResidualStore epi{feat, x0, out, b + 4 * gc, img, cp, pw, oy, ox, H, W, nf};
   conv3x3_mma(feat, cp, pw, kHalo, th, tw, nf + 4 * gc, nf, wk, epi);
 }
 
 // ---------------------------------------------------------------- float32, CUDA cores
 
-constexpr int kQ = 8;  // output channels per work item
-constexpr int kP = 2;  // horizontally adjacent pixels per work item
-
-// acc[p][q] += sum over the 3x3 taps and `cin` buffer channels around buffer
-// pixel (sy, sx + p) for output channel q. `w` points at this work item's
-// first output channel inside one conv's tap-major weights ([tap][cin][cout]).
-__device__ __forceinline__ void conv3x3_fma(float (&acc)[kP][kQ], const float* __restrict__ feat, int cin,
-                                            int plane, int pw, const float* __restrict__ w, int cout, int sy,
-                                            int sx) {
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const float* f = feat + (sy + tap / 3 - 1) * pw + (sx + tap % 3 - 1);
-    const float* wt = w + (size_t)tap * cin * cout;
-#pragma unroll 4
-    for (int ci = 0; ci < cin; ++ci) {
-      const float4 wa = __ldg(reinterpret_cast<const float4*>(wt + (size_t)ci * cout));
-      const float4 wb = __ldg(reinterpret_cast<const float4*>(wt + (size_t)ci * cout) + 1);
-      const float wq[kQ] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int p = 0; p < kP; ++p)
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) acc[p][q] = fmaf(f[ci * plane + p], wq[q], acc[p][q]);
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     rdb_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ x0, float* __restrict__ out,
-                       const float* __restrict__ w, const float* __restrict__ b, int H, int W, int nf, int gc,
-                       int th, int tw) {
+                       float* __restrict__ saved, const float* __restrict__ w, const float* __restrict__ b, int H,
+                       int W, int nf, int gc, int th, int tw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* feat = reinterpret_cast<float*>(smem_raw);  // channel-major planes
   const int ph = th + 2 * kHalo, pw = tw + 2 * kHalo, plane = ph * pw;
@@ -276,6 +196,15 @@ __global__ void __launch_bounds__(kThreads)
     wk += (size_t)9 * cin * gc;
     __syncthreads();
   }
+  if (saved != nullptr) {  // B1: the tile's [x, h_1 .. h_4] to device memory
+    const int total = nf + 4 * gc;
+    for (int i = tid; i < th * tw * total; i += kThreads) {
+      const int c = i % total, pix = i / total, sy = pix / tw, sx = pix % tw;
+      const int gy = oy + kHalo + sy, gx = ox + kHalo + sx;
+      if (gy < H && gx < W)
+        saved[(img + (size_t)gy * W + gx) * total + c] = feat[(size_t)c * plane + (kHalo + sy) * pw + kHalo + sx];
+    }
+  }
 
   const int pairs_x = tw / kP, npairs = th * pairs_x;
   for (int it = tid; it < npairs * (nf / kQ); it += kThreads) {
@@ -306,34 +235,49 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <class Kernel, class T, class Wt>
-int launch(Kernel kernel, size_t smem, const void* x, const void* x0, void* out, const void* w, const void* b,
-           int n, int h, int w_, int nf, int gc, int th, int tw, cudaStream_t stream) {
+int launch(Kernel kernel, size_t smem, const void* x, const void* x0, void* out, void* saved, const void* w,
+           const void* b, int n, int h, int w_, int nf, int gc, int th, int tw, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((w_ + tw - 1) / tw, (h + th - 1) / th, n);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(x0), static_cast<T*>(out),
-                                           static_cast<const Wt*>(w), static_cast<const float*>(b), h, w_, nf, gc,
-                                           th, tw);
+                                           static_cast<T*>(saved), static_cast<const Wt*>(w),
+                                           static_cast<const float*>(b), h, w_, nf, gc, th, tw);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes). `w` is the wrapper's packing for the
-// dtype: bf16 fragment order (is_bf16) or f32 tap-major. Returns a cudaError_t
-// value; 0 is success.
-extern "C" int climsr_rdb_fwd(const void* x, const void* x0, void* out, const void* w, const void* b, int n,
-                              int h, int w_, int nf, int gc, int th, int tw, int is_bf16, void* stream) {
+int forward(const void* x, const void* x0, void* out, void* saved, const void* w, const void* b, int n, int h,
+            int w_, int nf, int gc, int th, int tw, int is_bf16, void* stream) {
   if (n < 1 || h < 1 || w_ < 1 || th < 1 || tw < 1 || n > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (nf % 16 || gc % 16) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)(th + 2 * kHalo) * (tw + 2 * kHalo) * (nf + 4 * gc + kPad) * sizeof(bf16);
-    return launch<decltype(&rdb_fwd_bf16_kernel), bf16, uint4>(&rdb_fwd_bf16_kernel, smem, x, x0, out, w, b, n, h,
-                                                               w_, nf, gc, th, tw, s);
+    return launch<decltype(&rdb_fwd_bf16_kernel), bf16, uint4>(&rdb_fwd_bf16_kernel, smem, x, x0, out, saved, w, b,
+                                                               n, h, w_, nf, gc, th, tw, s);
   }
   if (nf % kQ || gc % kQ || tw % kP) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(nf + 4 * gc) * (th + 2 * kHalo) * (tw + 2 * kHalo) * sizeof(float);
-  return launch<decltype(&rdb_fwd_f32_kernel), float, float>(&rdb_fwd_f32_kernel, smem, x, x0, out, w, b, n, h, w_,
-                                                             nf, gc, th, tw, s);
+  return launch<decltype(&rdb_fwd_f32_kernel), float, float>(&rdb_fwd_f32_kernel, smem, x, x0, out, saved, w, b, n,
+                                                             h, w_, nf, gc, th, tw, s);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). `w` is the wrapper's packing for
+// the dtype: bf16 fragment order (is_bf16) or f32 tap-major. Each returns a
+// cudaError_t value; 0 is success.
+//
+// Kernel A: the forward.
+extern "C" int climsr_rdb_fwd(const void* x, const void* x0, void* out, const void* w, const void* b, int n,
+                              int h, int w_, int nf, int gc, int th, int tw, int is_bf16, void* stream) {
+  return forward(x, x0, out, nullptr, w, b, n, h, w_, nf, gc, th, tw, is_bf16, stream);
+}
+
+// Kernel B1: the forward that also writes feat (N x H x W x (nf + 4*gc)).
+extern "C" int climsr_rdb_fwd_save(const void* x, const void* x0, void* out, void* feat, const void* w,
+                                   const void* b, int n, int h, int w_, int nf, int gc, int th, int tw, int is_bf16,
+                                   void* stream) {
+  if (feat == nullptr) return (int)cudaErrorInvalidValue;
+  return forward(x, x0, out, feat, w, b, n, h, w_, nf, gc, th, tw, is_bf16, stream);
 }

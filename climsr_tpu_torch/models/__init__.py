@@ -9,7 +9,7 @@ for srcnn, ``generator(x, elev, mask)`` for the fusion generators.
 from __future__ import annotations
 
 import inspect
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -43,15 +43,23 @@ def create_generator(
     dtype: Optional[torch.dtype] = None,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
+    train: bool = False,
     **kwargs,
 ) -> nn.Module:
-    """Build a generator by registry name from config kwargs, in eval mode.
+    """Build a generator by registry name from config kwargs.
 
     Config keys the module does not take (``use_pallas``, ``remat``, ``name``,
     ...) are dropped, as the JAX registry drops unknown fields. ``generator``
     draws torch's default init; without it the parameters are zero, to be
     loaded from a checkpoint. The module lands on ``device`` (``None`` means
-    ``cuda``) in ``dtype`` and ``torch.channels_last``.
+    ``cuda``) in ``torch.channels_last``.
+
+    - ``train=False`` (inference): parameters in ``dtype``, eval mode.
+    - ``train=True``: float32 parameters, train mode, and ``dtype`` (default
+      float32) is the compute dtype, kept as ``module.compute_dtype``: the
+      inputs are cast to it (:func:`apply_generator_batch`) and every conv
+      rounds its parameters to it at use, as the JAX package keeps float32
+      params under a bf16 module ``dtype``.
     """
     if name in _NOT_PORTED:
         raise NotImplementedError(f"generator '{name}' is not ported yet: {_NOT_PORTED[name]}")
@@ -62,6 +70,10 @@ def create_generator(
     params = inspect.signature(cls.__init__).parameters
     kwargs = {k: v for k, v in kwargs.items() if k in params and k != "generator"}
     model = cls(generator=generator, **kwargs)
+    if train:
+        model = model.to(device=dev, dtype=torch.float32, memory_format=torch.channels_last).train()
+        model.compute_dtype = dtype or torch.float32
+        return model
     return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
 
 
@@ -76,3 +88,21 @@ def apply_generator(
     if name in FUSION_GENERATORS:
         return module(x, elevation, mask)
     return module(x)
+
+
+def apply_generator_batch(
+    name: str, module: nn.Module, batch: Dict[str, torch.Tensor], compute_dtype: torch.dtype
+) -> torch.Tensor:
+    """:func:`apply_generator` from an NCHW batch dict, the inputs cast to
+    ``compute_dtype`` on the module's device in ``torch.channels_last``: the
+    training tasks' one unpacking-and-cast point
+    (``climsr_tpu/models/__init__.py:89-99``)."""
+    dev = next(module.parameters()).device
+    B = consts.batch_items
+
+    def get(key):
+        return batch[key].to(device=dev, dtype=compute_dtype).contiguous(memory_format=torch.channels_last)
+
+    if name in FUSION_GENERATORS:
+        return module(get(B.lr), get(B.elevation), get(B.mask))
+    return module(get(B.lr))

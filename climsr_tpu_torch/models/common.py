@@ -3,8 +3,12 @@
 
 - :class:`TorchConv` is ``torch.nn.Conv2d`` with explicit symmetric padding
   ``k//2`` (the reference models' convs, ``climsr_tpu.models.common.TorchConv``).
-  Its parameters start at zero; random values come only from
-  :func:`init_torch_default_`, which takes an explicit ``torch.Generator``.
+  It computes in its input's dtype and rounds its weight and bias to that
+  dtype at use, as flax's ``nn.Conv(dtype=..., param_dtype=float32)`` does,
+  so float32 parameters train under bf16 compute and their gradients flow
+  back through the cast; a module already cast to the input's dtype computes
+  exactly as before. Its parameters start at zero; random values come only
+  from :func:`init_torch_default_`, which takes an explicit ``torch.Generator``.
 - :func:`init_torch_default_` draws torch's default conv init,
   U(±1/sqrt(fan_in)) for kernel and bias (kaiming-uniform with a=sqrt(5)), the
   same distribution ``climsr_tpu/models/common.py:28-44`` mirrors.
@@ -34,6 +38,10 @@ class TorchConv(nn.Conv2d):
             in_channels, out_channels, kernel_size,
             padding=kernel_size // 2 if padding is None else padding, bias=bias,
         )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
     def reset_parameters(self) -> None:
         # no draw from the global RNG: init_torch_default_ takes a generator

@@ -5,13 +5,23 @@ The counterpart of ``climsr_tpu.models.esrgan`` (reference
 ``climsr/models/esrgan.py``):
 
 - ``ResidualDenseBlock`` (5 convs, growth gc, LeakyReLU 0.2, out*0.2 + x) runs
-  as one call of :func:`climsr_tpu_torch.ops.rdb.fused_rdb`: the CUDA kernel
-  for a tensor on the card at every H and W, the plain version on the CPU,
+  as one call of :func:`climsr_tpu_torch.ops.rdb.fused_rdb`: kernel A for a
+  tensor on the card at every H and W, the plain version on the CPU, and,
+  where autograd needs the block's gradient, :class:`~climsr_tpu_torch.ops.rdb.FusedRDB`
+  (kernels B1 and B2 on the card),
 - ``ResidualInResidualDenseBlock`` = 3 RDBs, out*0.2 + x; the third RDB folds
   that outer residual into the kernel's single write (``x0``),
 - generator: conv_first -> nb RRDBs -> trunk_conv + global skip ->
   [nearest x2 upsample + conv + lrelu] x2 (scale 4) -> HRconv -> conv_last ->
-  fusion head ``SRCNN(concat(out, elev_hr, mask_hr))``.
+  fusion head ``SRCNN(concat(out, elev_hr, mask_hr))``, whose conv1 input
+  gradient is kernel C when there is one output channel (the JAX model turns
+  it on under ``use_pallas`` alone, ``climsr_tpu/models/esrgan.py:289-292``,
+  which is wrong for channels 1..out-1 when out_channels > 1).
+
+Every conv computes in its input's dtype with its parameters rounded to it at
+use, so a model with float32 parameters trains under bf16 compute (the input
+sets the compute dtype) and a model cast to bf16 for inference computes the
+same numbers.
 
 Modules take and return NCHW tensors; the trunk runs in
 ``torch.channels_last`` so cuDNN's convs and the RDB kernel share NHWC storage
@@ -98,7 +108,7 @@ class ESRGANGenerator(nn.Module):
             self.upconv2 = TorchConv(nf, nf)
         self.HRconv = TorchConv(nf, nf)
         self.conv_last = TorchConv(nf, out_channels)
-        self.srcnn = SRCNN(in_channels=out_channels + 2, out_channels=out_channels)
+        self.srcnn = SRCNN(in_channels=out_channels + 2, out_channels=out_channels, fusion_dx_c0=out_channels == 1)
         if generator is not None:
             init_torch_default_(self, generator)
 

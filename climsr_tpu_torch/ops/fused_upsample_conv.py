@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 
 def nearest_up2_conv3(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (N, C, H, W); weight: (F, C, 3, 3) OIHW; returns (N, F, 2H, 2W)."""
+    """x: (N, C, H, W); weight: (F, C, 3, 3) OIHW; returns (N, F, 2H, 2W) in
+    x's dtype (the parameters are rounded to it at use)."""
     up = F.interpolate(x, scale_factor=2, mode="nearest")
-    return F.conv2d(up, weight, bias, padding=1)
+    return F.conv2d(up, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), padding=1)

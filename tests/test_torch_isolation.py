@@ -48,13 +48,21 @@ def test_sources_import_no_jax_and_nothing_of_the_jax_package():
 def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     """``device=None`` means CUDA: without a card every entry point raises
     instead of running on the CPU."""
+    from climsr_tpu_torch.config.schemas import OptimizerConfig
     from climsr_tpu_torch.inference.run import inference_on_full_images, load_generator
     from climsr_tpu_torch.inference.tiled import TiledSR, whole_frame_sr
     from climsr_tpu_torch.models import create_generator
+    from climsr_tpu_torch.training.optimizers import build_optimizer
+    from climsr_tpu_torch.training.tasks.pretrain import make_eval_step, make_pretrain_step
 
+    cpu_model = create_generator("esrgan", device="cpu", train=True, nf=8, nb=1, gc=8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: create_generator("esrgan"),
+        lambda: create_generator("esrgan", train=True, dtype=torch.bfloat16),
+        lambda: build_optimizer(OptimizerConfig(), lambda step: 1e-4),
+        lambda: make_pretrain_step(cpu_model, "esrgan"),
+        lambda: make_eval_step(cpu_model, "esrgan"),
         lambda: load_generator(str(tmp_path / "missing.ckpt"), "esrgan"),
         lambda: TiledSR(lambda *a: a[0], scale=4, tile_size=16, overlap=4),
         lambda: whole_frame_sr(lambda *a: a[0], np.zeros((1, 4, 4, 1), np.float32)),
