@@ -2,8 +2,9 @@
 # -*- coding: utf-8 -*-
 """Drive the PyTorch/H100 port's main paths on one card and check them.
 
-Two paths of ``climsr_tpu_torch`` at the flagship width (nf=64, nb=11, gc=16,
-one output channel, bf16):
+Three paths of ``climsr_tpu_torch`` at the flagship width (nf=64, nb=11,
+gc=16, one output channel, bf16), and the entry points of the three kernels
+that no model path runs:
 
 - inference: the ESRGAN tiled whole-globe sweep, CRU-TS months of 360x720 LR
   cut into 128-px tiles with 8-px overlap, 16 tiles per generator call,
@@ -16,13 +17,23 @@ one output channel, bf16):
   B1 (the RDB forward that saves its features, ``csrc/rdb_fwd.cu``) and B2
   (the RDB backward, ``csrc/rdb_bwd.cu``) 33 times each and kernel C (the
   fusion head's input gradient to channel 0, ``csrc/conv9_dx_c0.cu``) once;
-  the eval step runs A 33 times.
+  the eval step runs A 33 times;
+- the relativistic GAN fine-tune: ``create_discriminator`` (ESRGAN
+  discriminator, 8192-input fc1 at HR 128), ``build_perceptual_loss`` (VGG19
+  to conv5_4 on seeded weights), Adam for G and D -> ``make_gan_step`` at
+  batch 192, then ``make_gan_val_losses``. Each step runs B1 and B2 33 times
+  each and C once; the val-loss call runs A 33 times;
+- kernel D (``fused_rdb_nhwc``, the NHWC entry to kernel A), kernel E
+  (``fused_hr_tail``, ``csrc/hr_tail.cu``) and kernel F (``dc0``, two
+  variants, ``csrc/dc0.cu``, through the probe
+  ``climsr_tpu_torch.scripts.bench_head_bwd_probe``). No model path runs
+  them (as in the JAX package); each is driven through its own entry point.
 
 Phases (each raises on failure; nothing is caught):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for the comparisons,
-2. build: the three kernel libraries from ``climsr_tpu_torch/csrc``, one
+2. build: the five kernel libraries from ``climsr_tpu_torch/csrc``, one
    ``nvcc`` each, started together; ptxas registers and spills,
 3. kernel A against its plain version at the inference shape (16 x 64 x
    128 x 128) and a ragged one (2 x 64 x 45 x 91), with and without the
@@ -45,7 +56,20 @@ Phases (each raises on failure; nothing is caught):
    grad norms compared; exactly 33 B1 + 33 B2 + 1 C launches per step and no
    A; ms/step, samples/s, a profiled step; then one eval step (33 A
    launches, 16 finite metrics),
-8. one JSON line with every kernel, the card line, then the device line as
+8. kernels D, E and F against their plain versions, bf16 and f32: D at
+   192 x 64 x 32 x 32 and 3 x 64 x 29 x 45, E and F at 192 x 64 x 128 x 128
+   and 2 x 64 x 45 x 91; times beside the bounds. Then D's and E's own
+   paths, counted: the flagship generator's first RRDB through D (three
+   launches) and its HR tail through E (one launch), each against the
+   generator's own modules,
+9. the probe (``bench_head_bwd_probe.probe``): F1 and F2 checked and timed
+   against kernel C, the plain version and the library's transposed conv,
+10. the GAN fine-tune at full width: 4 steps through the kernels and 4
+   through the plain versions from the same seeded init and batch; loss_G
+   and loss_D compared step by step; exactly 33 B1 + 33 B2 + 1 C launches
+   per step and no A, D, E or F; ms/step, samples/s, a profiled step; then
+   one val-loss call (33 A launches, finite losses),
+11. one JSON line with every kernel, the card line, then the device line as
    the last line.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA card). Exits non-zero, printing no
@@ -90,6 +114,24 @@ HEAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # pre-training through the kernels against the plain versions (bf16): the
 # per-block differences above through 33 blocks, the head and 6 AdamW steps
 STEP_LOSS_TOL, STEP_GRAD_NORM_TOL, TRAJECTORY_TOL = 1e-2, 5e-2, 2e-2
+# kernel D is kernel A reached through the NHWC entry: KERNEL_TOL. Kernel E:
+# f32 differs by summation order only; in bf16 both sides read the same
+# rounded lrelu(x) and weights and sum in f32, but the plain version's cuDNN
+# conv rounds HRconv's sum to bf16 before the bias add and the lrelu, where the
+# kernel rounds once after them, so a hidden value can move by one bf16 step
+# (2^-8 relative) before conv_last sums 576 of them: KERNEL_TOL as for A.
+# Kernel F computes C's function from the same bf16 inputs with f32 sums:
+# HEAD_TOL.
+TAIL_TOL = KERNEL_TOL
+# D's and E's own paths against the generator's own modules (bf16): D's path
+# adds RDB3's outer residual in bf16 after the kernel's rounding, where the
+# generator folds it into kernel A's single write: two roundings, not one
+PATH_TOL = {torch.bfloat16: 2e-2}
+# the GAN fine-tune through the kernels against the plain versions (bf16),
+# loss_G and loss_D at each of 4 Adam steps: the generator's per-block
+# differences above, through the discriminator, VGG19 and the Adam updates
+GAN_LOSS_TOL = 2e-2
+GAN_STEPS = 4
 
 NF, NB, GC = 64, 11, 16
 TRAIN_N, TRAIN_LR = 192, 32
@@ -565,13 +607,252 @@ def phase_pretrain(device) -> dict:
                 ms=ms, plain_ms=plain_ms)
 
 
+def phase_rdb_nhwc(device) -> dict:
+    """Kernel D's entry, ``fused_rdb_nhwc`` (NHWC in and out, HWIO weights),
+    against rdb_reference. Its timed call packs the weights, as the JAX
+    ``fused_rdb`` takes raw ones."""
+    from climsr_tpu_torch.ops.rdb import fused_rdb_nhwc, rdb_reference
+
+    result = {}
+    for n, h, w in ((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, _, weights = rdb_inputs(n, h, w, dtype, device)
+            xn = x.permute(0, 2, 3, 1)  # the NHWC view of channels_last storage
+            hwio = [t for wt, bs in weights for t in (wt.permute(2, 3, 1, 0), bs)]
+            got = fused_rdb_nhwc(xn, *hwio)
+            torch.cuda.synchronize()
+            ref = rdb_reference(x, weights).permute(0, 2, 3, 1)
+            abs_err, rel = rel_err(got, ref)
+            tag = f"fused_rdb_nhwc {n}x{h}x{w}x{NF} {str(dtype)[6:]}"
+            print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {TAIL_TOL[dtype]:g})")
+            if got.shape != xn.shape or not (rel <= TAIL_TOL[dtype]):
+                raise AssertionError(f"{tag}: kernel disagrees with rdb_reference ({rel:.3e})")
+            if (n, dtype) == (TRAIN_N, torch.bfloat16):
+                b = rdb_bound_ms(x, False)
+                result = dict(max_abs_err=abs_err, ms=cuda_ms(lambda: fused_rdb_nhwc(xn, *hwio)),
+                              plain_ms=cuda_ms(lambda: rdb_reference(x, weights)),
+                              bound_ms=b[0], bound_by=b[1], library_ms=None)
+                print(f"# {tag}: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
+                      f"bound {result['bound_ms']:.4f} ms ({result['bound_by']})")
+    return result
+
+
+def tail_inputs(n, h, w, dtype, device):
+    """x (N, 64, H, W) channels_last and (whr, bhr, wcl, bcl) OIHW, from seed 0."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(n, NF, h, w, generator=gen).to(device, dtype).contiguous(memory_format=torch.channels_last)
+    bound = 1.0 / (9 * NF) ** 0.5
+    shapes = ((NF, NF, 3, 3), (NF,), (1, NF, 3, 3), (1,))
+    return x, [((torch.rand(s, generator=gen) * 2 - 1) * bound).to(device) for s in shapes]
+
+
+def phase_hr_tail(device) -> dict:
+    """Kernel E against hr_tail_reference."""
+    from climsr_tpu_torch.ops.head import fused_hr_tail, hr_tail_reference
+
+    result = {}
+    for n, h, w in ((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, weights = tail_inputs(n, h, w, dtype, device)
+            got = fused_hr_tail(x, *weights)
+            torch.cuda.synchronize()
+            ref = hr_tail_reference(x, weights)
+            abs_err, rel = rel_err(got, ref)
+            tag = f"fused_hr_tail {n}x{NF}x{h}x{w} {str(dtype)[6:]}"
+            print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {TAIL_TOL[dtype]:g})")
+            if got.shape != (n, 1, h, w) or not (rel <= TAIL_TOL[dtype]):
+                raise AssertionError(f"{tag}: kernel disagrees with hr_tail_reference ({rel:.3e})")
+            if (n, dtype) == (TRAIN_N, torch.bfloat16):
+                px = n * h * w
+                flops = 2.0 * 9 * NF * (NF + 1) * px  # HRconv 64 -> 64 and conv_last 64 -> 1
+                b = bound(flops, px * 2 * (NF + 1) + 2 * 9 * NF * (NF + 1) + 4 * (NF + 1), dtype)
+                result = dict(max_abs_err=abs_err, ms=cuda_ms(lambda: fused_hr_tail(x, *weights)),
+                              plain_ms=cuda_ms(lambda: hr_tail_reference(x, weights)),
+                              bound_ms=b[0], bound_by=b[1], library_ms=None)
+                print(f"# {tag}: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
+                      f"bound {result['bound_ms']:.4f} ms ({result['bound_by']})")
+    return result
+
+
+def phase_dc0(device) -> None:
+    """Kernel F, both variants, against dc0_reference (the probe times them)."""
+    from climsr_tpu_torch.ops.head_bwd import dc0, dc0_reference
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for n, h, w in ((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn(n, 64, h, w, generator=gen).to(device, dtype).contiguous(memory_format=torch.channels_last)
+            w1c0 = ((torch.rand(9, 9, 64, generator=gen) * 2 - 1) / 72).to(device)
+            ref = dc0_reference(g, w1c0)
+            for variant in ("flat", "dyfac"):
+                got = dc0(g, w1c0, variant)
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(got, ref)
+                tag = f"dc0 {variant} {n}x64x{h}x{w} {str(dtype)[6:]}"
+                print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {HEAD_TOL[dtype]:g})")
+                if got.shape != (n, 1, h, w) or not (rel <= HEAD_TOL[dtype]):
+                    raise AssertionError(f"{tag}: kernel disagrees with dc0_reference ({rel:.3e})")
+
+
+def path_rdb_nhwc_and_hr_tail(device) -> dict:
+    """D's and E's own paths, their counts reset just before and read just
+    after: the flagship generator's first RRDB (x + 0.2 * RDB3(RDB2(RDB1(x))))
+    through ``fused_rdb_nhwc`` in NHWC, and its HR tail (lrelu, HRconv, lrelu,
+    conv_last) through ``fused_hr_tail`` on its upconv2 output, each against
+    the generator's own modules on the training batch's LR input (bf16)."""
+    from climsr_tpu_torch.models.common import leaky_relu
+    from climsr_tpu_torch.ops import head, rdb
+    from climsr_tpu_torch.ops.fused_upsample_conv import nearest_up2_conv3
+
+    dtype = torch.bfloat16
+    model = seeded_esrgan(device, dtype)
+    lr = train_batch()["lr"].to(device, dtype).contiguous(memory_format=torch.channels_last)
+    launches = {}
+    with torch.inference_mode():
+        fea = model.conv_first(lr).contiguous(memory_format=torch.channels_last)
+        rrdb = model.RRDB_trunk[0]
+        want = rrdb(fea).permute(0, 2, 3, 1)
+        rdb.fused_rdb_nhwc.launches = 0
+        y = fea.permute(0, 2, 3, 1)
+        for block in (rrdb.RDB1, rrdb.RDB2, rrdb.RDB3):
+            y = rdb.fused_rdb_nhwc(y, *(t for wt, bs in block.weights() for t in (wt.permute(2, 3, 1, 0), bs)))
+        got = fea.permute(0, 2, 3, 1) + 0.2 * y
+        launches["fused_rdb_nhwc"] = rdb.fused_rdb_nhwc.launches
+        checks = {"fused_rdb_nhwc (first RRDB)": rel_err(got, want)}
+
+        trunk = fea + model.trunk_conv(model.RRDB_trunk(fea))
+        up = leaky_relu(nearest_up2_conv3(trunk, model.upconv1.weight, model.upconv1.bias))
+        pre = nearest_up2_conv3(up, model.upconv2.weight, model.upconv2.bias)
+        want = model.conv_last(leaky_relu(model.HRconv(leaky_relu(pre))))
+        head.fused_hr_tail.launches = 0
+        got = head.fused_hr_tail(pre.contiguous(memory_format=torch.channels_last), model.HRconv.weight,
+                                 model.HRconv.bias, model.conv_last.weight, model.conv_last.bias)
+        launches["fused_hr_tail"] = head.fused_hr_tail.launches
+        checks[f"fused_hr_tail (HR head {tuple(pre.shape)})"] = rel_err(got, want)
+    for tag, (abs_err, rel) in checks.items():
+        print(f"# own path {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} against the generator's "
+              f"modules (tol {PATH_TOL[dtype]:g})")
+        if not (rel <= PATH_TOL[dtype]):
+            raise AssertionError(f"{tag} disagrees with the generator's own modules ({rel:.3e})")
+    print(f"# own paths: launches {launches}")
+    if launches != {"fused_rdb_nhwc": 3, "fused_hr_tail": 1}:
+        raise AssertionError(f"D's and E's own paths: expected 3 and 1 launches, counted {launches}")
+    return launches
+
+
+def phase_probe(device) -> dict:
+    """The probe's own path: F1 and F2 checked and timed, their counts reset
+    just before and read just after. Returns F1's and F2's numbers."""
+    from climsr_tpu_torch.ops.head_bwd import dc0
+    from climsr_tpu_torch.scripts import bench_head_bwd_probe as probe_mod
+
+    dc0.launches = 0
+    dc0.variant_launches.update(dict.fromkeys(dc0.variant_launches, 0))
+    res = probe_mod.probe(device)
+    launches = dict(dc0.variant_launches)
+    px = probe_mod.B * probe_mod.H * probe_mod.W
+    b = bound(2.0 * 81 * probe_mod.C * px, px * 2 * (probe_mod.C + 1) + 4 * 81 * probe_mod.C, torch.bfloat16)
+    out = {}
+    for variant in ("flat", "dyfac"):
+        r = res[f"dc0_{variant}"]
+        out[f"dc0_{variant}"] = dict(
+            launches=launches[variant], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=res["plain dc0_reference"]["ms"], bound_ms=b[0], bound_by=b[1],
+            library_ms=res["library conv_transpose2d"]["ms"])
+    print(f"# probe: launches {launches}; bound {b[0]:.4f} ms ({b[1]}); kernel C {res['kernel C conv9_dx_c0']['ms']:.4f} ms")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"probe: a variant of kernel F was never launched ({launches})")
+    return out
+
+
+def phase_gan(device) -> dict:
+    """The GAN fine-tune at full width through the kernels and through the plain versions."""
+    from climsr_tpu_torch.config.schemas import OptimizerConfig
+    from climsr_tpu_torch.losses.perceptual import build_perceptual_loss
+    from climsr_tpu_torch.models import create_discriminator, create_generator
+    from climsr_tpu_torch.ops.head import fused_hr_tail
+    from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, dc0
+    from climsr_tpu_torch.ops.rdb import fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save, fused_rdb_nhwc
+    from climsr_tpu_torch.training.optimizers import build_optimizer
+    from climsr_tpu_torch.training.tasks.gan import make_gan_step, make_gan_val_losses
+    from climsr_tpu_torch.training.train_state import GANTrainState
+
+    batch = {k: v.to(device) for k, v in train_batch().items()}
+    lr, dtype = 1e-4, torch.bfloat16
+    perceptual = build_perceptual_loss(compute_dtype=dtype, cutoff="conv5_4", device=device)
+    counters = (fused_rdb_fwd_save, fused_rdb_bwd, conv9_dx_c0, fused_rdb, fused_rdb_nhwc, fused_hr_tail, dc0)
+    names = ("B1", "B2", "C", "A", "D", "E", "F")
+
+    def run(tag: str):
+        g = create_generator("esrgan", dtype=dtype, generator=torch.Generator().manual_seed(0), device=device,
+                             train=True, in_channels=3, out_channels=1, nf=NF, nb=NB, gc=GC)
+        d = create_discriminator("esrgan", dtype=dtype, generator=torch.Generator().manual_seed(1), device=device,
+                                 train=True, in_channels=1, out_channels=64, hr_size=4 * TRAIN_LR)
+        if d.classification[0].in_features != 8192:
+            raise AssertionError(f"fc1 takes {d.classification[0].in_features} inputs, not 8192")
+
+        def tx():
+            return build_optimizer(OptimizerConfig(name="adam", lr=lr, weight_decay=1e-4), lambda s: lr,
+                                   device=device)
+
+        state = GANTrainState.create(g, tx(), d, tx())
+        step = make_gan_step(g, d, "esrgan", perceptual_fn=perceptual, compute_dtype=dtype, device=device)
+        trace, times = [], []
+        for c in counters:
+            c.launches = 0
+        for _ in range(GAN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            trace.append({k: v.item() for k, v in metrics.items()})
+            times.append(time.perf_counter() - t)
+        launches = dict(zip(names, (c.launches for c in counters)))
+        ms = 1e3 * statistics.median(times[1:])
+        print(f"# GAN {tag}: loss_G {['%.6f' % m['train/loss_G'] for m in trace]}, loss_D "
+              f"{['%.6f' % m['train/loss_D'] for m in trace]}; step 1 terms "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(trace[0].items()))
+              + f"; {ms:.3f} ms/step (median of steps 2-{GAN_STEPS}), {TRAIN_N / ms * 1e3:.2f} samples/s; "
+              f"launches {launches}")
+        if not all(np.isfinite(v) for m in trace for v in m.values()):
+            raise AssertionError(f"GAN {tag}: a non-finite loss")
+        return g, d, state, step, trace, ms, launches
+
+    g, d, state, step, trace, ms, launches = run("through the kernels")
+    expected = dict(B1=3 * NB * GAN_STEPS, B2=3 * NB * GAN_STEPS, C=GAN_STEPS, A=0, D=0, E=0, F=0)
+    if launches != expected:
+        raise AssertionError(f"GAN: expected launches {expected}, counted {launches}")
+    device_breakdown(lambda: step(state, batch), what="GAN step")
+    with plain_training():
+        *_, plain_trace, plain_ms, _ = run("through the plain versions")
+    worst = 0.0
+    for k in ("train/loss_G", "train/loss_D"):
+        for a, b in zip(trace, plain_trace):
+            worst = max(worst, abs(a[k] - b[k]) / abs(b[k]))
+    print(f"# GAN kernels vs plain: worst relative difference of loss_G and loss_D over {GAN_STEPS} steps "
+          f"{worst:.2e} (tol {GAN_LOSS_TOL:g})")
+    if not (worst <= GAN_LOSS_TOL):
+        raise AssertionError("the GAN step through the kernels disagrees with the plain versions")
+
+    val = make_gan_val_losses(g, d, "esrgan", perceptual_fn=perceptual, compute_dtype=dtype, device=device)
+    fused_rdb.launches = 0
+    losses = val(batch)
+    a_launches = fused_rdb.launches
+    print(f"# GAN val losses: {a_launches} A launches; "
+          + ", ".join(f"{k} {v.item():.6f}" for k, v in sorted(losses.items())))
+    if len(losses) != 3 or not all(torch.isfinite(v).item() for v in losses.values()):
+        raise AssertionError(f"GAN val losses: expected 3 finite losses, got {losses}")
+    if a_launches != 3 * NB:
+        raise AssertionError(f"GAN val losses: expected {3 * NB} A launches, counted {a_launches}")
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        from climsr_tpu_torch.ops import cuda_lib, head_bwd, rdb
+        from climsr_tpu_torch.ops import cuda_lib, head, head_bwd, rdb
     except ImportError as e:
         print(f"chip_smoke: the climsr_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -588,7 +869,8 @@ def main() -> int:
     # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
     libs = cuda_lib.build({"climsr_rdb": rdb._SOURCES, "climsr_rdb_bwd": rdb._BWD_SOURCES,
-                           "climsr_head_bwd": head_bwd._SOURCES})
+                           "climsr_head_bwd": head_bwd._SOURCES, "climsr_hr_tail": head._SOURCES,
+                           "climsr_dc0": head_bwd._DC0_SOURCES})
     print(f"# built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.3f} s")
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -620,7 +902,22 @@ def main() -> int:
           f"({TRAIN_N / pretrain['ms'] * 1e3:.2f} samples/s) through the kernels, {pretrain['plain_ms']:.3f} ms/step "
           f"({TRAIN_N / pretrain['plain_ms'] * 1e3:.2f} samples/s) through the plain versions ({card})")
 
-    # 8. results
+    # 8. kernels D, E, F against their plain versions; D's and E's own paths
+    rdb_nhwc = phase_rdb_nhwc(device)
+    hr_tail = phase_hr_tail(device)
+    phase_dc0(device)
+    own = path_rdb_nhwc_and_hr_tail(device)
+
+    # 9. the probe: F's own path
+    probe = phase_probe(device)
+
+    # 10. the GAN fine-tune and a val-loss call at full width
+    gan = phase_gan(device)
+    print(f"# GAN step, batch {TRAIN_N}: {gan['ms']:.3f} ms/step ({TRAIN_N / gan['ms'] * 1e3:.2f} samples/s) "
+          f"through the kernels, {gan['plain_ms']:.3f} ms/step ({TRAIN_N / gan['plain_ms'] * 1e3:.2f} samples/s) "
+          f"through the plain versions ({card})")
+
+    # 11. results
     kernels = [dict(name="fused_rdb", route="cuda", source="climsr_tpu_torch/csrc/rdb_fwd.cu",
                     replaces="climsr_tpu/ops/pallas/rdb.py:190", launches=globe["launches"], library_ms=None,
                     **kernel)]
@@ -631,6 +928,14 @@ def main() -> int:
     ):
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=pretrain["launches"][name], **train_kernels[name]))
+    # D, E, F run on no model path: their launches are their own paths' (phases 8, 9)
+    kernels.append(dict(name="fused_rdb_nhwc", route="cuda", source="climsr_tpu_torch/csrc/rdb_fwd.cu",
+                        replaces="climsr_tpu/ops/pallas/rdb.py:83", launches=own["fused_rdb_nhwc"], **rdb_nhwc))
+    kernels.append(dict(name="fused_hr_tail", route="cuda", source="climsr_tpu_torch/csrc/hr_tail.cu",
+                        replaces="climsr_tpu/ops/pallas/head.py:58", launches=own["fused_hr_tail"], **hr_tail))
+    for name, line in (("dc0_flat", 48), ("dc0_dyfac", 68)):
+        kernels.append(dict(name=name, route="cuda", source="climsr_tpu_torch/csrc/dc0.cu",
+                            replaces=f"scripts/bench_head_bwd_probe.py:{line}", **probe[name]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

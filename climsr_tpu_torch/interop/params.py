@@ -5,9 +5,14 @@
   of numpy arrays, flax HWIO kernels) into the port's ``state_dict`` (OIHW),
   for ``esrgan`` and ``srcnn``. The key mapping is the one of
   ``climsr_tpu/interop/torch_import.py:94-113`` (copied, not imported).
-- :func:`load_generator_checkpoint` reads a reference PyTorch-Lightning
-  ``.ckpt`` or a plain ``state_dict`` file and strips the ``generator.``
-  prefix, so the result loads into the port's modules with ``strict=True``.
+- :func:`discriminator_state_dict_from_flax` and :func:`vgg_state_dict_from_flax`
+  do the same for the ESRGAN discriminator (with its BatchNorm statistics) and
+  the VGG19 features, with the mapping of ``torch_import.py:229-245`` and
+  ``climsr_tpu/models/vgg.py:26-35`` (copied).
+- :func:`load_generator_checkpoint` and :func:`load_discriminator_checkpoint`
+  read a reference PyTorch-Lightning ``.ckpt`` (or a plain ``state_dict``
+  file) and strip the ``generator.`` / ``discriminator.`` prefix, so the result
+  loads into the port's modules with ``strict=True``.
 """
 from __future__ import annotations
 
@@ -73,10 +78,57 @@ def state_dict_from_flax(generator_type: str, params: dict) -> Dict[str, torch.T
     return sd
 
 
-def load_generator_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
-    """A reference PL ``.ckpt`` (or a plain saved ``state_dict``) -> the
-    generator's ``state_dict`` on the CPU, with the ``generator.`` prefix
-    stripped. A directory (an orbax checkpoint of the JAX package) raises."""
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def discriminator_state_dict_from_flax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``Discriminator``'s ``params`` and ``batch_stats`` -> the port's
+    ``state_dict`` (``feature_extraction.*``, ``classification.*``; BatchNorm
+    ``weight``/``bias`` from ``scale``/``bias``, running statistics from
+    ``mean``/``var``, ``num_batches_tracked`` 0)."""
+    n = 0
+    while f"block{n}_bn" in params:
+        n += 1
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix: str, path: str) -> None:
+        leaf = _get_path(params, f"{path}/Conv_0")
+        sd[f"{prefix}.weight"] = _tensor(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{prefix}.bias"] = _tensor(leaf["bias"])
+
+    for i in range(n):
+        conv(f"feature_extraction.{7 * i + 1}", f"block{i}_conv1")
+        bn, stats, prefix = params[f"block{i}_bn"], batch_stats[f"block{i}_bn"], f"feature_extraction.{7 * i + 3}"
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _tensor(bn["scale"]), _tensor(bn["bias"])
+        sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"] = _tensor(stats["mean"]), _tensor(stats["var"])
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        conv(f"feature_extraction.{7 * i + 5}", f"block{i}_conv2")
+    conv(f"feature_extraction.{7 * n}", "head_conv1")
+    conv(f"feature_extraction.{7 * n + 2}", "head_conv2")
+    for k, name in enumerate(("fc1", "fc2")):
+        leaf = _get_path(params, f"{name}/Dense_0")
+        sd[f"classification.{k}.weight"] = _tensor(np.asarray(leaf["kernel"]).T)
+        sd[f"classification.{k}.bias"] = _tensor(leaf["bias"])
+    return sd
+
+
+def vgg_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``VGG19Features`` ``params`` (``conv1_1``: kernel HWIO, bias,
+    ...) -> the port's ``features.{i}`` state dict, at torchvision's indices."""
+    from climsr_tpu_torch.models.vgg import conv_indices
+
+    sd: Dict[str, torch.Tensor] = {}
+    for name, idx in conv_indices().items():
+        if name not in params:
+            break  # a truncated stack
+        sd[f"features.{idx}.weight"] = _tensor(np.asarray(params[name]["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"features.{idx}.bias"] = _tensor(params[name]["bias"])
+    return sd
+
+
+def _read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """The tensors of a PL ``.ckpt`` or a saved ``state_dict``, on the CPU."""
     p = Path(path)
     if p.is_dir():
         raise NotImplementedError(
@@ -91,8 +143,25 @@ def load_generator_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Tensor]
         logger.warning("%s holds more than tensors; unpickling it in full", p)
         ckpt = torch.load(p, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-    sd = {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def load_generator_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """A reference PL ``.ckpt`` (or a plain saved ``state_dict``) -> the
+    generator's ``state_dict`` on the CPU, with the ``generator.`` prefix
+    stripped. A directory (an orbax checkpoint of the JAX package) raises."""
+    sd = _read_state_dict(path)
     gen = {k[len(GENERATOR_PREFIX):]: v for k, v in sd.items() if k.startswith(GENERATOR_PREFIX)}
     if not gen and not any(k.startswith(DISCRIMINATOR_PREFIX) for k in sd):
         gen = sd  # a bare generator state_dict
     return gen
+
+
+def load_discriminator_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """The ``discriminator.`` part of a reference PL ``.ckpt`` -> the
+    discriminator's ``state_dict`` on the CPU. Raises if there is none."""
+    sd = _read_state_dict(path)
+    disc = {k[len(DISCRIMINATOR_PREFIX):]: v for k, v in sd.items() if k.startswith(DISCRIMINATOR_PREFIX)}
+    if not disc:
+        raise KeyError(f"{path} holds no '{DISCRIMINATOR_PREFIX}' weights (not a GAN checkpoint)")
+    return disc

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
-"""Generator registry: name -> ``nn.Module``, plus generator-call dispatch.
+"""Model registry: name -> ``nn.Module``, plus generator-call dispatch.
 
-The port of ``climsr_tpu.models``. This slice carries ESRGAN and SRCNN; the
-other families are later items of ``ROADMAP.md`` and raise until they land.
+The port of ``climsr_tpu.models``. It carries the ESRGAN and SRCNN generators
+and the ESRGAN discriminator; the other families are later items of
+``ROADMAP.md`` and raise until they land.
 Call signature (reference ``climsr/core/task.py:235-239``): ``generator(x)``
 for srcnn, ``generator(x, elev, mask)`` for the fusion generators.
 """
@@ -16,6 +17,7 @@ from torch import nn
 
 import climsr_tpu_torch.consts as consts
 from climsr_tpu_torch.device import DeviceLike, resolve_device
+from climsr_tpu_torch.models.discriminator import Discriminator
 from climsr_tpu_torch.models.esrgan import ESRGANGenerator
 from climsr_tpu_torch.models.srcnn import SRCNN
 
@@ -29,6 +31,12 @@ _NOT_PORTED = {
     consts.models.rcan: "ROADMAP.md, queue 1: other generators (RCAN)",
     consts.models.drln: "ROADMAP.md, queue 1: other generators (DRLN)",
     consts.models.rfb_esrgan: "ROADMAP.md, queue 1: other generators (RFB-ESRGAN)",
+}
+
+DISCRIMINATORS = {"default": Discriminator, consts.models.esrgan: Discriminator}
+
+_DISCRIMINATORS_NOT_PORTED = {
+    consts.models.rfb_esrgan: "ROADMAP.md, queue 1, item 7: other generators (the RFB-ESRGAN discriminator)",
 }
 
 # Generators whose forward takes (x, elev, mask); the rest take (x,).
@@ -75,6 +83,39 @@ def create_generator(
         model.compute_dtype = dtype or torch.float32
         return model
     return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
+
+
+def create_discriminator(
+    name: str = "default",
+    dtype: Optional[torch.dtype] = None,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    train: bool = True,
+    **kwargs,
+) -> nn.Module:
+    """Build a discriminator by registry name (``climsr_tpu/models/__init__.py:66-72``).
+
+    Config keys the module does not take are dropped. The parameters and the
+    BatchNorm buffers are float32 and ``dtype`` (default float32) is the
+    compute dtype, kept as ``module.compute_dtype``: the GAN step casts D's
+    inputs to it and every conv and linear rounds its parameters to it at
+    use. ``generator`` draws torch's default init (else zeros, to be loaded).
+    ``train`` sets train mode (BatchNorm on batch statistics, running stats
+    updated) or eval mode. The module lands on ``device`` (``None`` means
+    ``cuda``) in ``torch.channels_last``. ``hr_size`` (default 128) fixes fc1's
+    fan-in.
+    """
+    if name in _DISCRIMINATORS_NOT_PORTED:
+        raise NotImplementedError(f"discriminator '{name}' is not ported yet: {_DISCRIMINATORS_NOT_PORTED[name]}")
+    if name not in DISCRIMINATORS:
+        raise KeyError(f"Unknown discriminator '{name}'. Available: {sorted(DISCRIMINATORS)}")
+    dev = resolve_device(device)
+    cls = DISCRIMINATORS[name]
+    params = inspect.signature(cls.__init__).parameters
+    kwargs = {k: v for k, v in kwargs.items() if k in params and k != "generator"}
+    model = cls(generator=generator, **kwargs).to(device=dev, dtype=torch.float32, memory_format=torch.channels_last)
+    model.compute_dtype = dtype or torch.float32
+    return model.train(train)
 
 
 def apply_generator(

@@ -9,9 +9,16 @@
   back through the cast; a module already cast to the input's dtype computes
   exactly as before. Its parameters start at zero; random values come only
   from :func:`init_torch_default_`, which takes an explicit ``torch.Generator``.
-- :func:`init_torch_default_` draws torch's default conv init,
+- :class:`TorchDense` is ``torch.nn.Linear`` with the same rounding of its
+  parameters to the input's dtype at use (``climsr_tpu.models.common.TorchDense``).
+- :func:`init_torch_default_` draws torch's default conv and linear init,
   U(±1/sqrt(fan_in)) for kernel and bias (kaiming-uniform with a=sqrt(5)), the
-  same distribution ``climsr_tpu/models/common.py:28-44`` mirrors.
+  same distribution ``climsr_tpu/models/common.py:28-44,103-125`` mirrors.
+- :class:`TorchBatchNorm` is ``BatchNorm2d`` with the semantics of
+  ``climsr_tpu.models.common.TorchBatchNorm`` under any compute dtype.
+
+The JAX package's reflection padding (``climsr_tpu/models/common.py``
+``reflect_pad_2d``) is torch's own ``nn.ReflectionPad2d``.
 """
 from __future__ import annotations
 
@@ -33,9 +40,10 @@ class TorchConv(nn.Conv2d):
         kernel_size: int = 3,
         padding: Optional[int] = None,
         bias: bool = True,
+        stride: int = 1,
     ):
         super().__init__(
-            in_channels, out_channels, kernel_size,
+            in_channels, out_channels, kernel_size, stride=stride,
             padding=kernel_size // 2 if padding is None else padding, bias=bias,
         )
 
@@ -50,12 +58,42 @@ class TorchConv(nn.Conv2d):
             nn.init.zeros_(self.bias)
 
 
+class TorchDense(nn.Linear):
+    """Linear that rounds its parameters to the input's dtype at use; zero-initialised."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class TorchBatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d as ``climsr_tpu/models/common.py:128-181`` computes it: in
+    train mode normalisation by the biased batch variance and the running
+    variance updated with the unbiased one, torch momentum 0.1, eps 1e-5. The
+    statistics and the normalisation run in float32 on float32 parameters and
+    buffers whatever the input's dtype, and the result is rounded to it (as
+    the JAX module's ``stat_dtype``); ``nn.BatchNorm2d`` would take a bf16
+    input only with bf16 buffers. State-dict keys are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            self.num_batches_tracked.add_(1)
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight.float(), self.bias.float(),
+                         self.training, self.momentum, self.eps)
+        return y.to(x.dtype)
+
+
 @torch.no_grad()
 def init_torch_default_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill every conv of ``module`` with torch's default init, drawn from ``generator``."""
+    """Fill every conv and linear of ``module`` with torch's default init, drawn from ``generator``."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:

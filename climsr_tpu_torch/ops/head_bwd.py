@@ -17,6 +17,14 @@ is an SRCNN over ``concat(out, elevation, mask)``; in training only channel 0
   convs, as the JAX package leaves them to XLA; dX is the kernel, exact for
   channel 0 and ZERO for channels 1+. It is valid only where those channels'
   gradients are discarded: ESRGAN turns it on only with one output channel.
+- :func:`dc0` is kernel F, ``csrc/dc0.cu`` (replacing the probe kernels
+  ``_dc0_kernel`` and ``_dc0_kernel_dyfac`` of
+  ``scripts/bench_head_bwd_probe.py:48,68``): C's function by the TPU
+  kernels' plan, a projection of g onto the 81 reversed taps on the tensor
+  cores and then shift-adds, in the "flat" and "dyfac" orders. Its plain
+  version is :func:`dc0_reference`. Only the probe
+  (``climsr_tpu_torch.scripts.bench_head_bwd_probe``) runs it; C stays on the
+  training path.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from climsr_tpu_torch.ops import cuda_lib
+from climsr_tpu_torch.ops.rdb import _fragment_index_on
 
 _SOURCES = ("conv9_dx_c0.cu",)
 _CHUNK = 16  # the kernel walks the output channels 16 at a time
@@ -115,3 +124,88 @@ class FusionConv1(torch.autograd.Function):
 def fusion_conv1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """The fusion head's conv1 with the channel-0 input gradient (see module docstring)."""
     return FusionConv1.apply(x, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: C's function by projection and shift-adds (the probe's two variants)
+
+_DC0_SOURCES = ("dc0.cu",)
+DC0_VARIANTS = {"flat": (9, 96), "dyfac": (16, 144)}  # variant: (rows per dy, projection width)
+
+
+def dc0_reference(g: torch.Tensor, w1c0: torch.Tensor) -> torch.Tensor:
+    """The probe's function (``scripts/bench_head_bwd_probe.py:126``, kernel
+    C's): ``out[n, y, x] = sum w1c0[4 - dy, 4 - dx, c] * g[n, c, y + dy, x + dx]``
+    over dy, dx in -4..4 (g zero outside). ``g``: (N, C, H, W); ``w1c0``:
+    (9, 9, C), read rounded to g's dtype (as the kernel's tensor cores read it)
+    in f32; f32 sums; (N, 1, H, W) in g's dtype."""
+    wrev = w1c0.to(g.dtype).float().flip(0, 1).permute(2, 0, 1).unsqueeze(0)  # (1, C, 9, 9)
+    return F.conv2d(g.float(), wrev, padding=4).to(g.dtype)
+
+
+def dc0_tap_rows(w1c0: torch.Tensor, variant: str) -> torch.Tensor:
+    """The projection's weight matrix (width x C) of a variant: the spatially
+    reversed taps, tap (dy, dx) (0..8 each) in row ``rows_per_dy * dy + dx``,
+    zero elsewhere (``bench_head_bwd_probe.py:101-108``)."""
+    per_dy, width = DC0_VARIANTS[variant]
+    c = w1c0.shape[-1]
+    t = torch.arange(81, device=w1c0.device)
+    rows = torch.zeros(width, c, dtype=w1c0.dtype, device=w1c0.device)
+    rows[per_dy * (t // 9) + t % 9] = w1c0.flip(0, 1).reshape(81, c)
+    return rows
+
+
+def _dc0_library() -> ctypes.CDLL:
+    lib = cuda_lib.load("climsr_dc0", _DC0_SOURCES)
+    for fn in (lib.climsr_dc0_flat, lib.climsr_dc0_dyfac):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def dc0(g: torch.Tensor, w1c0: torch.Tensor, variant: str = "flat") -> torch.Tensor:
+    """Kernel F: :func:`dc0_reference`'s function by the probe's plan, "flat"
+    (F1, ``_dc0_kernel``) or "dyfac" (F2, ``_dc0_kernel_dyfac``). ``g``:
+    (N, C, H, W) channels_last, C a multiple of 16 up to 128 on the card;
+    ``w1c0``: (9, 9, C). On a CUDA tensor it launches ``csrc/dc0.cu`` on the
+    current stream or raises; on a CPU tensor it runs the plain version. A
+    forward-only probe: it takes no gradient, and refuses inputs that need one."""
+    if variant not in DC0_VARIANTS:
+        raise ValueError(f"dc0 variant is 'flat' or 'dyfac', got {variant!r}")
+    if torch.is_grad_enabled() and (g.requires_grad or w1c0.requires_grad):
+        raise ValueError("dc0 is a forward-only probe and takes no gradient")
+    if g.device.type == "cpu":
+        return dc0_reference(g, w1c0)
+    if g.device.type != "cuda":
+        raise ValueError(f"dc0 runs on CUDA or CPU tensors, got {g.device}")
+    if g.dim() != 4 or g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dc0 takes an (N, C, H, W) float32 or bfloat16 tensor, got {g.dtype} {tuple(g.shape)}")
+    n, c, h, w = g.shape
+    if tuple(w1c0.shape) != (9, 9, c) or w1c0.device != g.device:
+        raise ValueError(f"w1c0 {tuple(w1c0.shape)} on {w1c0.device} is not (9, 9, {c}) on {g.device}")
+    if c % 16 or not 16 <= c <= 128 or n > 65535:
+        raise ValueError(f"dc0 kernel takes C a multiple of 16 up to 128 and at most 65535 images, got {c}, {n}")
+    if not g.is_contiguous(memory_format=torch.channels_last) or g.data_ptr() % 16:
+        raise ValueError("dc0 kernel needs g in torch.channels_last memory format, 16-byte aligned")
+    rows = dc0_tap_rows(w1c0.to(g.dtype), variant)
+    if g.dtype == torch.bfloat16:
+        n_idx, k_idx = _fragment_index_on(rows.shape[0], c, g.device)
+        rows = rows[n_idx, k_idx]
+    rows = rows.contiguous()
+    out = torch.empty((n, 1, h, w), dtype=g.dtype, device=g.device)
+    if out.numel() == 0:
+        return out
+    lib = _dc0_library()
+    fn = lib.climsr_dc0_flat if variant == "flat" else lib.climsr_dc0_dyfac
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), rows.data_ptr(), out.data_ptr(), n, h, w, c, int(g.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dc0 kernel launch failed: CUDA error {err}")
+    dc0.launches += 1
+    dc0.variant_launches[variant] += 1
+    return out
+
+
+dc0.launches = 0  # kernel F launches (both variants) since the count was last reset
+dc0.variant_launches = dict.fromkeys(DC0_VARIANTS, 0)  # the same, per variant (F1 "flat", F2 "dyfac")

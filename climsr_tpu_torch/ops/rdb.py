@@ -25,6 +25,9 @@ residual is folded into the same write: ``x0 + 0.2 * (x + 0.2 * conv5)``.
   ``_rdb_t_bwd_kernel`` ``rdb.py:432``). Their plain versions are
   :func:`rdb_fwd_save_reference` and :func:`rdb_bwd_reference` (explicit conv
   algebra, not autograd).
+- :func:`fused_rdb_nhwc` is the JAX package's public ``fused_rdb`` (TPU kernel
+  D, ``_rdb_kernel`` ``rdb.py:83``): NHWC in and out, HWIO weights. D computes
+  A's function in another TPU layout, so on the card it launches kernel A.
 
 What bounds the kernel on an H100, and what its design does about it, is
 written at the top of ``csrc/rdb_fwd.cu``: the block is bound by operations
@@ -231,14 +234,15 @@ def fused_rdb(
         return FusedRDB.apply(x, x0, packed, *(t for wb in weights for t in wb))
     if x.device.type == "cpu":
         return rdb_reference(x, weights, x0)
-    return _launch_forward(x, weights, x0, packed, save=False)[0]
+    return _launch_forward(x, weights, x0, packed, save=False, counter=fused_rdb)[0]
 
 
 fused_rdb.launches = 0  # kernel A launches since the count was last reset
 
 
-def _launch_forward(x, weights, x0, packed, save: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel A (``save=False``) or B1 on the current stream; returns (out, feat or None)."""
+def _launch_forward(x, weights, x0, packed, save: bool, counter) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel A (``save=False``) or B1 on the current stream; returns (out,
+    feat or None) and adds one to ``counter.launches``, the entry point's count."""
     if x.device.type != "cuda":
         raise ValueError(f"the RDB kernels run on CUDA tensors, got {x.device}")
     if packed is None:
@@ -263,10 +267,9 @@ def _launch_forward(x, weights, x0, packed, save: bool) -> Tuple[torch.Tensor, O
         else:
             err = lib.climsr_rdb_fwd(x.data_ptr(), x0_ptr, out.data_ptr(), packed.w.data_ptr(),
                                      packed.b.data_ptr(), *args, stream)
-    name = "fused_rdb_fwd_save" if save else "fused_rdb"
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    (fused_rdb_fwd_save if save else fused_rdb).launches += 1
+        raise RuntimeError(f"{counter.__name__} kernel launch failed: CUDA error {err}")
+    counter.launches += 1
     return out, feat
 
 
@@ -331,7 +334,7 @@ def fused_rdb_fwd_save(
     CPU tensor it runs :func:`rdb_fwd_save_reference`."""
     if x.device.type == "cpu":
         return rdb_fwd_save_reference(x, weights, x0)
-    return _launch_forward(x, weights, x0, packed, save=True)
+    return _launch_forward(x, weights, x0, packed, save=True, counter=fused_rdb_fwd_save)
 
 
 fused_rdb_fwd_save.launches = 0  # kernel B1 launches since the count was last reset
@@ -453,3 +456,51 @@ class FusedRDB(torch.autograd.Function):
         for k in range(5):
             grads += [dws[k].to(dt).to(params[2 * k].dtype), dbs[k].to(dt).to(params[2 * k + 1].dtype)]
         return (dx, g if ctx.with_x0 else None, None, *grads)
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: the NHWC entry point (the JAX package's public ``fused_rdb``)
+
+
+def fused_rdb_nhwc(
+    x: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+    w3: torch.Tensor, b3: torch.Tensor,
+    w4: torch.Tensor, b4: torch.Tensor,
+    w5: torch.Tensor, b5: torch.Tensor,
+    batch_tile: Optional[int] = None,
+) -> torch.Tensor:
+    """One RDB, ``x + 0.2 * conv5(...)``, with the arguments of the JAX
+    package's ``fused_rdb`` (``climsr_tpu/ops/pallas/rdb.py:634``, TPU kernel
+    D ``_rdb_kernel`` ``:83``): ``x`` (N, H, W, nf) and HWIO weights
+    (3, 3, cin, cout). Returns (N, H, W, nf).
+
+    D and kernel A compute the same function (A without ``x0``); the TPU had
+    two kernels only because it had two layouts. An NHWC tensor is the port's
+    ``channels_last`` layout, so ``x.permute(0, 3, 1, 2)`` is a free view and
+    D's counterpart on the card is kernel A (``csrc/rdb_fwd.cu``), launched
+    from here and counted in ``fused_rdb_nhwc.launches``. Where autograd needs
+    a gradient the block goes through :class:`FusedRDB` (kernels B1 and B2),
+    whose gradient is the one JAX's reference VJP computes
+    (``rdb.py:644-646``). On a CPU tensor it runs :func:`rdb_reference`; on a
+    CUDA tensor the kernel cannot take it raises.
+
+    ``batch_tile`` is accepted for the JAX signature and ignored: it sets the
+    TPU grid's images per step and changes no number; the CUDA grid tiles each
+    image by itself.
+    """
+    del batch_tile
+    params = (w1, b1, w2, b2, w3, b3, w4, b4, w5, b5)
+    weights = [(params[2 * k].permute(3, 2, 0, 1), params[2 * k + 1]) for k in range(5)]  # OIHW views
+    xc = x.contiguous().permute(0, 3, 1, 2)  # NCHW view of NHWC storage: channels_last
+    if _needs_grad(x, *params):
+        out = FusedRDB.apply(xc, None, None, *(t for wb in weights for t in wb))
+    elif x.device.type == "cpu":
+        out = rdb_reference(xc, weights)
+    else:
+        out = _launch_forward(xc, weights, None, None, save=False, counter=fused_rdb_nhwc)[0]
+    return out.permute(0, 2, 3, 1)
+
+
+fused_rdb_nhwc.launches = 0  # kernel A launches through this entry since the count was last reset

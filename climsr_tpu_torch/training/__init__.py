@@ -1,2 +1,3 @@
 # -*- coding: utf-8 -*-
-"""Training of the port: schedules, optimizers, train state and the pixel-loss pre-training task."""
+"""Training of the port: schedules, optimizers, train states and the tasks
+(pixel-loss pre-training, the relativistic GAN fine-tune)."""

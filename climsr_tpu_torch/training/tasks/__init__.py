@@ -1,2 +1,2 @@
 # -*- coding: utf-8 -*-
-"""Training tasks (this slice: pixel-loss pre-training)."""
+"""Training tasks: pixel-loss pre-training and the relativistic GAN fine-tune."""

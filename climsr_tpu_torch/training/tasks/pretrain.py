@@ -51,13 +51,13 @@ def pixel_loss_fn(generator_type: str) -> Callable[[torch.Tensor, torch.Tensor],
     return lambda sr, hr: torch.mean(torch.abs(sr - hr))
 
 
-def _refuse_later_options(**options) -> None:
+def refuse_later_options(step_name: str, **options) -> None:
     for name, value in options.items():
         if value is not None:
-            raise NotImplementedError(f"make_pretrain_step({name}=...) is not ported yet: {_LATER[name]}")
+            raise NotImplementedError(f"{step_name}({name}=...) is not ported yet: {_LATER[name]}")
 
 
-def _check_device(model: nn.Module, device: DeviceLike) -> None:
+def check_device(model: nn.Module, device: DeviceLike) -> None:
     """``device=None`` means ``cuda``: raises without a card, or where the model is elsewhere."""
     dev = resolve_device(device)
     where = next(model.parameters()).device
@@ -79,8 +79,8 @@ def make_pretrain_step(
     forward, backward and optimizer update of ``state.model``, in place (the
     state carries the optimizer: ``TrainState.create(model, tx)``).
     ``device`` (``None`` means ``cuda``) is where the model must be."""
-    _refuse_later_options(augment=augment, store=store, zero=zero, spatial=spatial)
-    _check_device(model, device)
+    refuse_later_options("make_pretrain_step", augment=augment, store=store, zero=zero, spatial=spatial)
+    check_device(model, device)
     loss_fn = pixel_loss_fn(generator_type)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -113,7 +113,7 @@ def make_eval_step(
     model as it stands (16 metrics + ``{prefix}/normalized_loss`` and
     ``{prefix}/loss``), under ``torch.inference_mode``. ``device`` (``None``
     means ``cuda``) is where the model must be."""
-    _check_device(model, device)
+    check_device(model, device)
     loss_fn = pixel_loss_fn(generator_type)
 
     @torch.inference_mode()

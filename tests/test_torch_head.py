@@ -1,0 +1,223 @@
+# -*- coding: utf-8 -*-
+"""Kernels E (the fused HR tail) and F (the probe's dc0) against the JAX package's.
+
+On the CPU the wrappers run their plain versions; they are held, on the same
+numpy inputs in f32, against the Pallas kernels run in interpret mode:
+
+- E: ``fused_hr_tail`` (``climsr_tpu/ops/pallas/head.py``) at 2 images of
+  16 x 24 in the transposed layout (transposed on the numpy side), the output
+  and dX through the custom VJP;
+- F: both variants of ``dc0_pallas`` (``scripts/bench_head_bwd_probe.py``,
+  imported by path) at C=8 on one 128 x 128 image (the size the probe's
+  module globals fix), and the port's ``conv9_dx_c0_reference`` on a ragged
+  shape.
+
+The host-side packing is checked here too: F's tap rows in both layouts and
+the emulated projection and shift-adds of each variant, as the CUDA kernel
+runs them. The CUDA kernels themselves are compared with their plain versions
+on the card (``chip_smoke.py`` and the ``cuda``-marked tests below).
+"""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from climsr_tpu.ops.pallas.head import fused_hr_tail as jax_fused_hr_tail
+from climsr_tpu.ops.pallas.head import hr_tail_reference as jax_hr_tail_reference
+from climsr_tpu_torch.ops import head, head_bwd
+
+torch.set_num_threads(1)
+
+REL_TOL = 1e-4  # of max|ref|: f32, summation order only
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _probe_module():
+    spec = importlib.util.spec_from_file_location("jax_bench_head_bwd_probe", ROOT / "scripts" / "bench_head_bwd_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _nchw(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def _close(got, want, rel=REL_TOL):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=rel * np.abs(want).max())
+
+
+def _tail_case(rng, n=2, h=16, w=24):
+    x = rng.normal(size=(n, h, w, 64)).astype(np.float32)
+    whr = rng.normal(size=(3, 3, 64, 64)).astype(np.float32) * 0.1
+    bhr = rng.normal(size=(64,)).astype(np.float32) * 0.1
+    wcl = rng.normal(size=(3, 3, 64, 1)).astype(np.float32) * 0.1
+    bcl = rng.normal(size=(1,)).astype(np.float32) * 0.1
+    return x, (whr, bhr, wcl, bcl)
+
+
+def _oihw_weights(weights):
+    whr, bhr, wcl, bcl = weights
+    return [torch.from_numpy(whr.transpose(3, 2, 0, 1).copy()), torch.from_numpy(bhr.copy()),
+            torch.from_numpy(wcl.transpose(3, 2, 0, 1).copy()), torch.from_numpy(bcl.copy())]
+
+
+def test_hr_tail_matches_the_pallas_kernel_and_its_vjp(rng):
+    """Output and dX of sum(out ** 2), as tests/test_pallas.py takes them."""
+    n, h, w = 2, 16, 24
+    x, weights = _tail_case(rng, n, h, w)
+    jw = [jnp.asarray(a) for a in weights]
+    xt = jnp.transpose(jnp.asarray(x), (3, 0, 1, 2)).reshape(64, n * h * w)
+    want = np.asarray(jax_fused_hr_tail(xt, h, w, *jw, 1)).reshape(n, h, w)
+    want_dx = jax.grad(lambda xt: jnp.sum(jax_fused_hr_tail(xt, h, w, *jw, 1) ** 2))(xt)
+    want_dx = np.asarray(want_dx).reshape(64, n, h, w).transpose(1, 0, 2, 3)
+
+    tx = _nchw(x).requires_grad_(True)
+    tw = _oihw_weights(weights)
+    head.fused_hr_tail.launches = 0
+    out = head.fused_hr_tail(tx, *tw)
+    assert out.shape == (n, 1, h, w) and out.grad_fn is not None
+    _close(out.detach()[:, 0], want)
+    (out ** 2).sum().backward()
+    _close(tx.grad, want_dx)
+    assert head.fused_hr_tail.launches == 0
+    _close(head.hr_tail_reference(tx.detach(), tw).permute(0, 2, 3, 1),
+           jax_hr_tail_reference(jnp.asarray(x), tuple(jw)))
+
+
+def test_hr_tail_parameter_gradients_match_the_jax_vjp(rng):
+    """dW and db of all four parameters through FusedHRTail's backward (autograd
+    of the plain version) against JAX's VJP of its reference, to 1e-4 of max."""
+    n, h, w = 1, 7, 9  # ragged: the port takes any H, W
+    x, weights = _tail_case(rng, n, h, w)
+    jw = [jnp.asarray(a) for a in weights]
+    g = jax.grad(lambda *p: jnp.sum(jax_hr_tail_reference(jnp.asarray(x), p) ** 2), argnums=(0, 1, 2, 3))(*jw)
+    tw = [t.requires_grad_(True) for t in _oihw_weights(weights)]
+    (head.fused_hr_tail(_nchw(x), *tw) ** 2).sum().backward()
+    for got, want in zip(tw, g):
+        want = np.asarray(want)
+        if want.ndim == 4:
+            want = want.transpose(3, 2, 0, 1)
+        _close(got.grad, want)
+
+
+def test_hr_tail_wrapper_refuses_other_devices(rng):
+    x, weights = _tail_case(rng, 1, 4, 4)
+    with pytest.raises(ValueError):
+        head.fused_hr_tail(_nchw(x).to("meta"), *(t.to("meta") for t in _oihw_weights(weights)))
+
+
+def test_dc0_variants_match_the_pallas_probe_kernels(rng):
+    """Both variants against the TPU probe's kernels (interpret mode), C=8 on
+    one 128 x 128 image, 1e-4 of max|ref| (f32)."""
+    probe = _probe_module()
+    c = 8
+    g = rng.normal(size=(1, probe.H, probe.W, c)).astype(np.float32)
+    w1c0 = rng.normal(size=(9, 9, c)).astype(np.float32) * 0.05
+    g_t = jnp.transpose(jnp.asarray(g), (3, 0, 1, 2)).reshape(c, probe.H * probe.W)
+    tg, tw = _nchw(g), torch.from_numpy(w1c0)
+    head_bwd.dc0.launches = 0
+    for variant in ("flat", "dyfac"):
+        want = np.asarray(probe.dc0_pallas(g_t, jnp.asarray(w1c0), variant)).reshape(1, probe.H, probe.W)
+        got = head_bwd.dc0(tg, tw, variant)
+        assert got.shape == (1, 1, probe.H, probe.W)
+        _close(got[:, 0], want)
+    _close(head_bwd.dc0_reference(tg, tw).permute(0, 2, 3, 1), probe.dc0_reference(jnp.asarray(g), jnp.asarray(w1c0)))
+    assert head_bwd.dc0.launches == 0
+
+
+def test_dc0_is_kernel_c_function_on_a_ragged_shape(rng):
+    """dc0(g, w1c0) == conv9_dx_c0_reference(g, W) with W[c, 0] = w1c0[..., c]."""
+    g = rng.normal(size=(2, 13, 21, 16)).astype(np.float32)
+    w1c0 = rng.normal(size=(9, 9, 16)).astype(np.float32) * 0.05
+    tw = torch.from_numpy(w1c0)
+    want = head_bwd.conv9_dx_c0_reference(_nchw(g), tw.permute(2, 0, 1).unsqueeze(1))
+    for variant in ("flat", "dyfac"):
+        _close(head_bwd.dc0(_nchw(g), tw, variant), want.numpy())
+    with pytest.raises(ValueError):
+        head_bwd.dc0(_nchw(g), tw, "rolled")
+    with pytest.raises(ValueError, match="forward-only"):
+        head_bwd.dc0(_nchw(g).requires_grad_(True), tw)
+    with pytest.raises(ValueError):
+        head_bwd.dc0(_nchw(g).to("meta"), tw.to("meta"))
+
+
+@pytest.mark.parametrize("variant", ["flat", "dyfac"])
+def test_dc0_packing_and_shift_adds_as_the_kernel_runs_them(rng, variant):
+    """The tap rows are the probe's ``wp`` (``bench_head_bwd_probe.py:101-108``),
+    and the kernel's plan on them — V = rows @ g per pixel of the zero-padded
+    image, then flat: out = sum_t V[9 dy + dx] shifted by (dy, dx); dyfac:
+    A[dx] = sum_dy V[16 dy + dx] shifted by dy rows, out = sum_dx A[dx] shifted
+    by dx — gives dc0_reference. The bf16 packing is the mma B-fragment order
+    of those rows."""
+    c, h, w = 16, 11, 13
+    per_dy, width = head_bwd.DC0_VARIANTS[variant]
+    g = rng.normal(size=(h, w, c)).astype(np.float32)
+    w1c0 = rng.normal(size=(9, 9, c)).astype(np.float32)
+    rows = head_bwd.dc0_tap_rows(torch.from_numpy(w1c0), variant).numpy()
+    want_rows = np.zeros((width, c), np.float32)
+    t = np.arange(81)
+    want_rows[per_dy * (t // 9) + t % 9] = w1c0[::-1, ::-1].reshape(81, c)
+    np.testing.assert_array_equal(rows, want_rows)
+
+    gp = np.zeros((h + 8, w + 8, c), np.float32)
+    gp[4:4 + h, 4:4 + w] = g
+    v = np.einsum("nc,yxc->nyx", rows, gp)
+    out = np.zeros((h, w), np.float32)
+    if variant == "flat":
+        for dy in range(9):
+            for dx in range(9):
+                out += v[9 * dy + dx, dy:dy + h, dx:dx + w]
+    else:
+        a = np.zeros((9, h, w + 8), np.float32)
+        for dx in range(9):
+            for dy in range(9):
+                a[dx] += v[16 * dy + dx, dy:dy + h]
+        for dx in range(9):
+            out += a[dx][:, dx:dx + w]
+    want = head_bwd.dc0_reference(_nchw(g[None]), torch.from_numpy(w1c0))[0, 0].numpy()
+    _close(out, want)
+
+    from climsr_tpu_torch.ops.rdb import fragment_index
+
+    n_idx, k_idx = fragment_index(width, c)
+    packed = torch.from_numpy(rows).to(torch.bfloat16)[n_idx, k_idx].float().numpy().reshape(width // 16, c // 16, 32, 4, 2)
+    rb = torch.from_numpy(rows).to(torch.bfloat16).float().numpy()
+    for q in range(width // 16):
+        for s in range(c // 16):
+            for lane in range(32):
+                gq, tq = divmod(lane, 4)
+                for word in range(4):
+                    for half in range(2):
+                        n = 16 * q + 8 * (word // 2) + gq
+                        k = 16 * s + 2 * tq + 8 * (word % 2) + half
+                        assert packed[q, s, lane, word, half] == rb[n, k]
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels E and F have no CPU mode (chip_smoke.py covers them)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_kernels_e_and_f_match_plain_versions(rng, cuda_device, dtype, tol):
+    """A ragged image with tiles across every border; tolerances as in chip_smoke.py."""
+    x, weights = _tail_case(rng, 2, 45, 91)
+    tx = _nchw(x).to(cuda_device, dtype).contiguous(memory_format=torch.channels_last)
+    tw = [t.to(cuda_device) for t in _oihw_weights(weights)]
+    got, ref = head.fused_hr_tail(tx, *tw).float(), head.hr_tail_reference(tx, tw).float()
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    w1c0 = torch.from_numpy(rng.normal(size=(9, 9, 64)).astype(np.float32) * 0.05).to(cuda_device)
+    ref = head_bwd.dc0_reference(tx, w1c0).float()
+    for variant in ("flat", "dyfac"):
+        got = head_bwd.dc0(tx, w1c0, variant).float()
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()

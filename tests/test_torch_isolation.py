@@ -51,11 +51,14 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     from climsr_tpu_torch.config.schemas import OptimizerConfig
     from climsr_tpu_torch.inference.run import inference_on_full_images, load_generator
     from climsr_tpu_torch.inference.tiled import TiledSR, whole_frame_sr
-    from climsr_tpu_torch.models import create_generator
+    from climsr_tpu_torch.losses.perceptual import build_perceptual_loss
+    from climsr_tpu_torch.models import create_discriminator, create_generator
     from climsr_tpu_torch.training.optimizers import build_optimizer
+    from climsr_tpu_torch.training.tasks.gan import make_gan_step, make_gan_val_losses
     from climsr_tpu_torch.training.tasks.pretrain import make_eval_step, make_pretrain_step
 
     cpu_model = create_generator("esrgan", device="cpu", train=True, nf=8, nb=1, gc=8)
+    cpu_d = create_discriminator("esrgan", device="cpu", out_channels=8, num_conv_block=2, hr_size=32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: create_generator("esrgan"),
@@ -67,6 +70,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
         lambda: TiledSR(lambda *a: a[0], scale=4, tile_size=16, overlap=4),
         lambda: whole_frame_sr(lambda *a: a[0], np.zeros((1, 4, 4, 1), np.float32)),
         lambda: inference_on_full_images(torch.nn.Identity(), None, str(tmp_path / "o"), "esrgan"),
+        lambda: create_discriminator("esrgan"),
+        lambda: make_gan_step(cpu_model, cpu_d, "esrgan"),
+        lambda: make_gan_val_losses(cpu_model, cpu_d, "esrgan"),
+        lambda: build_perceptual_loss(cutoff="conv1_2"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

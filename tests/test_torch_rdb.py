@@ -4,6 +4,8 @@
 On the CPU the port's wrapper runs its plain version; it is held against the
 JAX ``rdb_reference`` and the Pallas kernels ``fused_rdb_t`` /
 ``fused_rdb_res_t`` run in interpret mode, on the same numpy inputs, in f32.
+Kernel D's entry point ``fused_rdb_nhwc`` is held against the JAX public
+``fused_rdb`` (TPU kernel D in interpret mode) and its reference VJP.
 Tolerance: 1e-4 of max|ref| (summation order only). The CUDA kernel itself is
 compared with the plain version on the card (``chip_smoke.py`` and the
 ``cuda``-marked test below).
@@ -14,7 +16,10 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
 from climsr_tpu.ops.pallas.rdb import cl_to_nhwc, fused_rdb_res_t, fused_rdb_t, nhwc_to_cl
+from climsr_tpu.ops.pallas.rdb import fused_rdb as jax_fused_rdb
 from climsr_tpu.ops.pallas.rdb import rdb_reference as jax_rdb_reference
 from climsr_tpu_torch.ops import rdb
 
@@ -78,6 +83,33 @@ def test_rdb_reference_matches_pallas_kernels(rng, n, h, w, nf, gc):
     _assert_close(rdb.rdb_reference(tx, weights), want)
     want_res = cl_to_nhwc(fused_rdb_res_t(xt, x0t, h, w, *ws, 1), n, h, w)
     _assert_close(rdb.rdb_reference(tx, weights, tx0), want_res)
+
+
+@pytest.mark.parametrize("n", [4, 6], ids=["batch4", "batch6-tile-remainder"])
+def test_fused_rdb_nhwc_matches_the_jax_kernel_d(rng, n):
+    """NHWC in and out, HWIO weights, as the JAX ``fused_rdb`` (kernel D,
+    interpret mode) at (n, 8, 8, 16), gc=8; ``batch_tile`` is ignored."""
+    x, _, ws = _case(rng, n, 8, 8, 16, 8)
+    want = np.asarray(jax_fused_rdb(jnp.asarray(x), *ws))
+    rdb.fused_rdb_nhwc.launches = 0
+    got = rdb.fused_rdb_nhwc(torch.from_numpy(x), *(torch.from_numpy(a) for a in ws), batch_tile=8)
+    assert got.shape == (n, 8, 8, 16) and rdb.fused_rdb_nhwc.launches == 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=REL_TOL * np.abs(want).max())
+
+
+def test_fused_rdb_nhwc_gradients_match_the_jax_reference_vjp(rng):
+    """Through FusedRDB (B1/B2's plain versions here): dx and every dW, db of
+    sum(out ** 2) against ``jax.grad`` of the JAX ``fused_rdb``, 1e-4 of max."""
+    x, _, ws = _case(rng, 2, 8, 8, 16, 8)
+    want = jax.grad(lambda *a: jnp.sum(jax_fused_rdb(*a) ** 2), argnums=tuple(range(11)))(
+        jnp.asarray(x), *(jnp.asarray(a) for a in ws))
+    args = [torch.from_numpy(a.copy()).requires_grad_(True) for a in [x, *ws]]
+    out = rdb.fused_rdb_nhwc(*args)
+    assert out.grad_fn is not None
+    (out ** 2).sum().backward()
+    for a, b in zip(args, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.grad.numpy(), b, rtol=0, atol=REL_TOL * np.abs(b).max())
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing(rng):
@@ -175,3 +207,9 @@ def test_cuda_kernel_matches_plain_version(rng, cuda_device, dtype, tol):
     assert rdb.fused_rdb.launches == before + 2
     with pytest.raises(ValueError):
         rdb.fused_rdb(tx.contiguous(), weights)  # NCHW-contiguous is refused, not converted
+    before = rdb.fused_rdb_nhwc.launches
+    hwio = [t.to(cuda_device, dtype) for t in (torch.from_numpy(a) for a in ws)]
+    got = rdb.fused_rdb_nhwc(tx.permute(0, 2, 3, 1), *hwio).float()
+    ref = rdb.rdb_reference(tx, weights).float().permute(0, 2, 3, 1)
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert rdb.fused_rdb_nhwc.launches == before + 1

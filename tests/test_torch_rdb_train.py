@@ -178,11 +178,37 @@ def _head_entry(rng):
     return head_bwd.fusion_conv1(x, w, torch.zeros(64, requires_grad=True))
 
 
+def _rdb_nhwc_entry(rng):
+    x, _, _, ws = _case(rng, n=1, h=4, w=5)
+    return rdb.fused_rdb_nhwc(torch.from_numpy(x).requires_grad_(True), *(torch.from_numpy(a) for a in ws))
+
+
+def _hr_tail_entry(rng):
+    from climsr_tpu_torch.ops import head
+
+    x = torch.from_numpy(rng.normal(size=(1, 64, 5, 6)).astype(np.float32)).requires_grad_(True)
+    return head.fused_hr_tail(x, torch.zeros(64, 64, 3, 3), torch.zeros(64), torch.zeros(1, 64, 3, 3), torch.zeros(1))
+
+
 KERNEL_WRAPPERS = {
     "climsr_tpu_torch.ops.rdb.fused_rdb": _rdb_entry,
     "climsr_tpu_torch.ops.rdb.fused_rdb_fwd_save": _rdb_entry,
     "climsr_tpu_torch.ops.rdb.fused_rdb_bwd": _rdb_entry,
+    "climsr_tpu_torch.ops.rdb.fused_rdb_nhwc": _rdb_nhwc_entry,
+    "climsr_tpu_torch.ops.head.fused_hr_tail": _hr_tail_entry,
     "climsr_tpu_torch.ops.head_bwd.conv9_dx_c0": _head_entry,
+}
+
+
+def _dc0_with_grad(rng):
+    g = torch.from_numpy(rng.normal(size=(1, 16, 5, 6)).astype(np.float32)).requires_grad_(True)
+    return head_bwd.dc0(g, torch.zeros(9, 9, 16))
+
+
+# Wrappers that take no gradient: they refuse an input that needs one rather
+# than return a result without ``grad_fn``.
+FORWARD_ONLY_WRAPPERS = {
+    "climsr_tpu_torch.ops.head_bwd.dc0": _dc0_with_grad,
 }
 
 
@@ -198,11 +224,15 @@ def test_every_kernel_wrapper_keeps_the_autograd_graph(rng):
         for name, obj in vars(mod).items():
             if callable(obj) and hasattr(obj, "launches") and getattr(obj, "__module__", None) == mod.__name__:
                 found.add(f"{mod.__name__}.{name}")
-    assert found == set(KERNEL_WRAPPERS), "a new kernel wrapper needs its differentiable entry point here"
+    assert found == set(KERNEL_WRAPPERS) | set(FORWARD_ONLY_WRAPPERS), \
+        "a new kernel wrapper needs its differentiable entry point here"
     for name, entry in KERNEL_WRAPPERS.items():
         out = entry(rng)
         assert out.grad_fn is not None and out.requires_grad, name
         out.sum().backward()
+    for name, entry in FORWARD_ONLY_WRAPPERS.items():
+        with pytest.raises(ValueError, match="gradient"):
+            entry(rng)
 
 
 def test_fused_rdb_without_grad_runs_the_forward_only(rng):
