@@ -49,8 +49,10 @@ Phases (each raises on failure; nothing is caught):
 6. kernels B1 and B2 against their plain versions at the training shape
    (192 x 64 x 32 x 32) and a ragged one (3 x 64 x 29 x 45), bf16 and f32,
    with scales (0.2, 1) and, with x0, (0.04, 0.2): out, feat, dx, every dW
-   and db; kernel C at 192 x 64 x 128 x 128 and 2 x 64 x 45 x 91; times
-   beside the bounds (and C's library conv),
+   and db; at the training shape B2's dX pass, dW pass, reduction and
+   wrapper ops each timed on the device, and two B2 calls on the same inputs
+   bitwise equal; kernel C at 192 x 64 x 128 x 128 and 2 x 64 x 45 x 91;
+   times beside the bounds (and C's library conv),
 7. pre-training at full width: 6 steps through the kernels and 6 through
    the plain versions from the same seeded init and batch; losses and
    grad norms compared; exactly 33 B1 + 33 B2 + 1 C launches per step and no
@@ -232,9 +234,10 @@ def phase_kernel(device) -> dict:
     return result
 
 
-def device_breakdown(run, top: int = 6, what: str = "sweep") -> None:
+def device_breakdown(run, top: int = 6, what: str = "sweep") -> list:
     """Run ``run()`` under ``torch.profiler`` and print the device's busy share
-    of the wall time and the kernels that take the most device time."""
+    of the wall time and the kernels that take the most device time; returns
+    the device rows of ``key_averages()``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -248,6 +251,7 @@ def device_breakdown(run, top: int = 6, what: str = "sweep") -> None:
           f"({100 * busy_us / wall_us:.1f}%; no device time means the trace saw no kernels)")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"#   {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:100]}")
+    return kernels
 
 
 @contextlib.contextmanager
@@ -464,7 +468,39 @@ def phase_train_kernels(device) -> dict:
                         r = result[name]
                         print(f"# {name} {tag}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                    passes = b2_passes(lambda: fused_rdb_bwd(feat, g, weights, gy, gx))
+                    print(f"# fused_rdb_bwd {tag} device ms per call: "
+                          + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+                    again = fused_rdb_bwd(feat, g, weights, gy, gx)
+                    torch.cuda.synchronize()
+                    first = [dx, *dws, *dbs]
+                    second = [again[0], *again[1], *again[2]]
+                    same = all(torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+                                           b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
+                               for a, b in zip(first, second))
+                    print(f"# fused_rdb_bwd {tag}: two calls on the same inputs give bitwise-equal dx, dW, db: {same}")
+                    if not same:
+                        raise AssertionError("fused_rdb_bwd is not deterministic: two calls differ")
     return result
+
+
+def b2_passes(run, calls: int = 5) -> dict:
+    """Device ms per call of kernel B2's parts, from :func:`device_breakdown`
+    over ``calls`` calls: its dX pass, its dW pass, the fixed-order reduction
+    and the wrapper's own device ops (weight packing, db_5)."""
+    run()
+    torch.cuda.synchronize()
+    kernels = device_breakdown(lambda: [run() for _ in range(calls)], what=f"{calls} B2 calls")
+    parts = dict.fromkeys(("dX", "dW", "reduce", "wrapper ops"), 0.0)
+    wrapper = []
+    for e in kernels:
+        part = ("dX" if "rdb_bwd_dx" in e.key else "reduce" if "wgrad_reduce" in e.key
+                else "dW" if "rdb_wgrad" in e.key else "wrapper ops")
+        parts[part] += e.self_device_time_total / 1e3 / calls
+        if part == "wrapper ops":
+            wrapper.append(f"{e.self_device_time_total / 1e3 / calls:.4f} ms {e.key[:60]}")
+    print("#   wrapper ops per call: " + "; ".join(wrapper))
+    return parts
 
 
 def phase_head_kernel(device) -> dict:

@@ -29,24 +29,44 @@
 //    weights and epilogues: each block loads gy * g with a 5-pixel halo into
 //    a shared-memory buffer B = [dz_5, dz_4, dz_3, dz_2, dz_1] (nf + 4*gc
 //    channels) and runs four convs with the transposed, spatially flipped
-//    weights (the wrapper packs them once per call), each over a region one
-//    pixel smaller, writing dz_k into its slice of B; a fifth conv gives dx.
-//    The tile's centre of B goes to device memory as `z`, the input of part 2.
-// 2. dW (`rdb_wgrad_*_kernel`): one block per (conv, 16 output channels, tap)
-//    and per split of the pixels. Each block walks its share of 8 x 16 pixel
-//    tiles, stages dz and feat (with a 1-pixel halo) in shared memory, and sums
-//    dz^T . feat_shifted on the tensor cores (bf16: mma.sync with both
-//    operands through ldmatrix.trans, f32 sums; f32: CUDA-core FMA). Each split
-//    writes its own f32 partial of every dW (and of the growth db).
+//    weights (the wrapper packs them with one gather per call), each over a
+//    region one pixel smaller, writing dz_k into its slice of B; a fifth conv
+//    gives dx. The tile's centre of B goes to device memory as `z`, the input
+//    of part 2. In bf16 this is the forward's `conv_chain` (rdb_common.cuh):
+//    weights through a two-slot shared-memory ring, mma.sync for the growth
+//    steps and wgmma for the 64-channel last conv, 220,736 bytes of shared
+//    memory and one block per SM, as kernel A.
+// 2. dW (`rdb_wgrad_*_kernel`). bf16: one block per 16-channel group of z
+//    (8 at nf=64, gc=16: dz_5 in four groups, then dz_4 .. dz_1, each the
+//    output gradient of one conv) and per split of the pixel tiles; the job
+//    and split tables come from the wrapper (`wgrad_plan`), 33 splits at the
+//    training shape so 264 blocks fill the 132 SMs twice. For each 8 x 16
+//    pixel tile the block stages its 16 dz channels and feat's first cin
+//    channels with a 1-pixel halo once (cp.async, zero-filled outside the
+//    image, double-buffered: the next tile's copies run under this tile's
+//    products, 2 x 55,104 bytes, two blocks per SM), and all nine taps are
+//    address offsets into that stage: a warp owns (16 input channels, tap)
+//    pairs, and one ldmatrix.trans A fragment of dz^T feeds up to 9 of them,
+//    mma.sync m16n8k16 with f32 sums. So feat is staged 8 times per call,
+//    not once per (conv, 16 outputs, tap) as in the first version (~61
+//    times). Each block writes its rows of dW, contiguous in OIHW, through
+//    shared memory 16 bytes at a time, and the growth db from a fixed-order
+//    sum, as its split's f32 partial. f32: one block per (conv, 16 outputs,
+//    tap) and split, CUDA-core FMA.
 // 3. A reduction (`rdb_wgrad_reduce_kernel`) sums the partials in a fixed
-//    order.
+//    order. No atomics anywhere: two calls on the same inputs give the same
+//    bits.
 //
 // Bound on this card: at the training shape (192 x 64 x 32 x 32, nf=64, gc=16,
 // bf16) the backward does twice the forward's products, 97.8 GFLOP (99 us at
 // the dense bf16 rate), against 151 MB of feat, g and dx (45 us), so it is
-// bound by operations. This first version pays for its simplicity: mma.sync
-// from single-stage loops, the halo recompute of part 1 (as the forward), z
-// written and read back once (50 MB), and 16 MB of partials.
+// bound by operations. What still holds it back: part 1 is kernel A's chain
+// with the same limits (its growth steps read A fragments at about 60% of
+// shared memory's bandwidth, one block per SM, the halo recompute) plus a
+// global read of h per growth output for the slope; part 2 reads feat's
+// shifted rows from shared memory once per 16 outputs (16 operations per
+// byte, the same bound as the growth convs), and z is written and read back
+// once (50 MB) with 16 MB of partials.
 
 #include "rdb_common.cuh"
 
@@ -56,22 +76,23 @@ using namespace rdb;
 
 // ---------------------------------------------------------------- part 1: dX, bfloat16 on the tensor cores
 
-// dz_k epilogue: dfeat(h_k) times LeakyReLU's slope at h_k (from the saved
-// feat), rounded to bf16, into B's channel slice; zero outside the image.
+// Step s's epilogue (dz_{4-s}): dfeat(h_{4-s}) times LeakyReLU's slope at
+// h_{4-s} (from the saved feat), rounded to bf16, into B's channel slice
+// nf + s*gc; zero outside the image.
 struct SlopeStore {
   bf16* buf;
   const bf16* feat;
   size_t img;
-  int cp, pw, ch, hch, total, oy, ox, H, W;
-  __device__ __forceinline__ void operator()(int sy, int sx, int c, float v0, float v1) const {
+  int cp, pw, nf, gc, total, oy, ox, H, W;
+  __device__ __forceinline__ void operator()(int s, int sy, int sx, int c, float v0, float v1) const {
     const int gy = oy + sy, gx = ox + sx;
     __nv_bfloat162 r = __floats2bfloat162_rn(0.f, 0.f);
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const __nv_bfloat162 h =
-          *reinterpret_cast<const __nv_bfloat162*>(feat + (img + (size_t)gy * W + gx) * total + hch + c);
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(
+          feat + (img + (size_t)gy * W + gx) * total + nf + (3 - s) * gc + c);
       r = __floats2bfloat162_rn(__low2float(h) > 0.f ? v0 : 0.2f * v0, __high2float(h) > 0.f ? v1 : 0.2f * v1);
     }
-    *reinterpret_cast<__nv_bfloat162*>(buf + (sy * pw + sx) * cp + ch + c) = r;
+    *reinterpret_cast<__nv_bfloat162*>(buf + (sy * pw + sx) * cp + nf + s * gc + c) = r;
   }
 };
 
@@ -92,14 +113,15 @@ struct DxStore {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     rdb_bwd_dx_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ feat, bf16* __restrict__ dx,
-                           bf16* __restrict__ z, const uint4* __restrict__ w, int H, int W, int nf, int gc, int th,
+                           bf16* __restrict__ z, const bf16* __restrict__ w, int H, int W, int nf, int gc, int th,
                            int tw, float gys, float gxs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* buf = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // chain_smem: the ring, then the buffer
   const int total = nf + 4 * gc;
   const int ph = th + 2 * kHalo, pw = tw + 2 * kHalo, cp = total + kPad;
+  bf16* buf = ring + 2 * kSlotElems;
   const int oy = blockIdx.y * th - kHalo;  // image coordinates of buffer pixel (0, 0)
   const int ox = blockIdx.x * tw - kHalo;
   const size_t img = (size_t)blockIdx.z * H * W;
@@ -118,26 +140,20 @@ __global__ void __launch_bounds__(kThreads)
     }
     *reinterpret_cast<uint4*>(buf + pix * cp + v * 8) = val;
   }
-  __syncthreads();
 
-  const uint4* wk = w;
-  for (int s = 0; s < 4; ++s) {  // dz_4, dz_3, dz_2, dz_1
-    const int cin = nf + s * gc;
-    const SlopeStore epi{buf, feat, img, cp, pw, cin, nf + (3 - s) * gc, total, oy, ox, H, W};
-    conv3x3_mma(buf, cp, pw, 1 + s, ph - 2 - 2 * s, pw - 2 - 2 * s, cin, gc, wk, epi);
-    wk += (size_t)(gc / 16) * (9 * cin / 16) * 32;
-    __syncthreads();
-  }
-  const int tv = total / 8;  // the tile's B to device memory, for part 2
-  for (int i = threadIdx.x; i < th * tw * tv; i += kThreads) {
-    const int v = i % tv, pix = i / tv, sy = pix / tw, sx = pix % tw;
-    const int gy = oy + kHalo + sy, gx = ox + kHalo + sx;
-    if (gy < H && gx < W)
-      *reinterpret_cast<uint4*>(z + (img + (size_t)gy * W + gx) * total + v * 8) =
-          *reinterpret_cast<const uint4*>(buf + ((kHalo + sy) * pw + kHalo + sx) * cp + v * 8);
-  }
-  const DxStore epi{g, dx, img, oy, ox, H, W, nf, gxs};
-  conv3x3_mma(buf, cp, pw, kHalo, th, tw, total, nf, wk, epi);
+  // steps 0..3 give dz_4, dz_3, dz_2, dz_1; the last conv gives dx
+  const SlopeStore growth{buf, feat, img, cp, pw, nf, gc, total, oy, ox, H, W};
+  const DxStore last{g, dx, img, oy, ox, H, W, nf, gxs};
+  conv_chain(buf, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
+    const int tv = total / 8;  // the tile's B to device memory, for part 2
+    for (int i = threadIdx.x; i < th * tw * tv; i += kThreads) {
+      const int v = i % tv, pix = i / tv, sy = pix / tw, sx = pix % tw;
+      const int gy = oy + kHalo + sy, gx = ox + kHalo + sx;
+      if (gy < H && gx < W)
+        *reinterpret_cast<uint4*>(z + (img + (size_t)gy * W + gx) * total + v * 8) =
+            *reinterpret_cast<const uint4*>(buf + ((kHalo + sy) * pw + kHalo + sx) * cp + v * 8);
+    }
+  });
 }
 
 // ---------------------------------------------------------------- part 1: dX, float32 on the CUDA cores
@@ -220,7 +236,7 @@ constexpr int kWThreads = 128;
 constexpr int kTH = 8, kTW = 16;  // pixel tile: 8 rows of 16 = 128 pixels = 8 k-steps of 16
 constexpr int kFH = kTH + 2, kFW = kTW + 2;  // feat tile with a 1-pixel halo
 
-// Which dW a block computes: conv j (0..4), 16 output channels from co0, one tap.
+// f32: which dW a block computes: conv j (0..4), 16 output channels from co0, one tap.
 struct Job {
   int j, co0, tap, cin, cout, zc;  // zc: the first of the 16 dz channels in z
   size_t woff;                     // the conv's first weight in the flat [dW_1 .. dW_5] (OIHW each)
@@ -247,14 +263,13 @@ __device__ __forceinline__ Job job_of(int b, int nf, int gc) {
   return o;
 }
 
-// Stage one pixel tile: 16 dz channels of 128 pixels, and feat's first cin
-// channels with a 1-pixel halo; zero outside the image. Rows are zs_stride /
-// fs_stride elements apart (16-byte multiples).
-template <class T>
-__device__ __forceinline__ void stage_tile(T* zs, int zs_stride, T* fs, int fs_stride, const T* __restrict__ z,
-                                           const T* __restrict__ feat, const Job& jb, size_t img, int ty0, int tx0,
-                                           int H, int W, int total) {
-  constexpr int E = 16 / sizeof(T);
+// f32: stage one pixel tile: 16 dz channels of 128 pixels, and feat's first
+// cin channels with a 1-pixel halo; zero outside the image. Rows are
+// zs_stride / fs_stride elements apart (16-byte multiples).
+__device__ __forceinline__ void stage_tile(float* zs, int zs_stride, float* fs, int fs_stride,
+                                           const float* __restrict__ z, const float* __restrict__ feat, const Job& jb,
+                                           size_t img, int ty0, int tx0, int H, int W, int total) {
+  constexpr int E = 4;  // floats per 16 bytes
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int i = threadIdx.x; i < kTH * kTW * (16 / E); i += kWThreads) {
     const int v = i % (16 / E), pix = i / (16 / E);
@@ -275,76 +290,156 @@ __device__ __forceinline__ void stage_tile(T* zs, int zs_stride, T* fs, int fs_s
   }
 }
 
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// The growth convs' db: the block of the centre tap sums its 16 dz channels.
-template <class T>
-__device__ __forceinline__ void sum_db(float& acc, const T* zs, int zs_stride) {
-  for (int p = 0; p < kTH * kTW; ++p) acc += to_f32(zs[p * zs_stride + threadIdx.x]);
+// f32: the growth convs' db: the block of the centre tap sums its 16 dz channels.
+__device__ __forceinline__ void sum_db(float& acc, const float* zs, int zs_stride) {
+  for (int p = 0; p < kTH * kTW; ++p) acc += zs[p * zs_stride + threadIdx.x];
 }
 
-__global__ void __launch_bounds__(kWThreads)
-    rdb_wgrad_bf16_kernel(const bf16* __restrict__ z, const bf16* __restrict__ feat, float* __restrict__ partial,
-                          float* __restrict__ db_partial, int n, int H, int W, int nf, int gc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int zstride = 16 + kPad;  // 48-byte rows: ldmatrix rows on distinct banks
-  const Job jb = job_of(blockIdx.x, nf, gc);
-  const int fstride = jb.cin + kPad;
-  const int total = nf + 4 * gc;
-  bf16* zs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* fs = zs + kTH * kTW * zstride;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int mi = lane >> 3, r = lane & 7;
-  const int ty = jb.tap / 3, tx = jb.tap % 3;
-  const int ctiles = jb.cin / 16;
-  const bool with_db = jb.tap == 4 && jb.j < 4 && threadIdx.x < 16;
+// bf16: one block per (16-channel group of z, split of the pixel tiles). The
+// job table (the wrapper's `wgrad_plan`) gives each group's conv and dW
+// slice, the split table each split's tiles. For each tile the block stages
+// the group's 16 dz channels and feat's first cin channels with a 1-pixel
+// halo once, and runs all nine taps on them as address offsets: a warp owns
+// (16 input channels, tap) pairs warp, warp + 8, ... (at most 9: 8 input
+// tiles x 9 taps over 8 warps), so one A fragment of dz^T feeds up to 18
+// products per k-step. Tiles stream
+// through two stages with cp.async, the next tile's copies in flight while
+// the current tile's products run. 2 blocks per SM.
+constexpr int kWPairs = 9;            // (input tile, tap) pairs per warp: cin <= 128
+constexpr int kZStride = 16 + kPad;   // staged dz: 48-byte rows, ldmatrix rows on distinct banks
 
-  float acc[2][2][4] = {};
-  float db = 0.f;
+// one stage: 128 pixels x 16 dz channels, 10 x 18 pixels x cin feat channels
+__host__ __device__ constexpr int wgrad_stage_elems(int cin) {
+  return kTH * kTW * kZStride + kFH * kFW * (cin + kPad);
+}
+
+// One staged tile's products for a warp that holds NP (input tile, tap)
+// pairs: for each tile row (k-step of 16 pixels) one A fragment of dz^T and
+// NP B fragments of feat shifted by the pair's tap. Every warp of the block
+// holds the same NP (a pair past the conv's last repeats it and is dropped),
+// so the loop has no branch.
+template <int NP>
+__device__ __forceinline__ void wgrad_products(float (&acc)[kWPairs][2][4], const bf16* zs, const bf16* fs,
+                                               const int (&poff)[kWPairs], int fstride) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+#pragma unroll 2
+  for (int kk = 0; kk < kTH; ++kk) {  // k-step kk: the 16 pixels of tile row kk
+    // A = dz^T (16 channels x 16 pixels): matrices (pixels 0-7 | 8-15) x (channels 0-7 | 8-15)
+    unsigned a[4];
+    ldmatrix_x4_trans(a, zs + (kk * kTW + (mi >> 1) * 8 + r) * kZStride + (mi & 1) * 8);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      // B = feat shifted by the tap (16 pixels x 16 channels): b0, b1 of two n-tiles of 8
+      unsigned b[4];
+      ldmatrix_x4_trans(b, fs + poff[i] + kk * kFW * fstride);
+      mma_bf16(acc[i][0], a, b[0], b[1]);
+      mma_bf16(acc[i][1], a, b[2], b[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    rdb_wgrad_bf16_kernel(const bf16* __restrict__ z, const bf16* __restrict__ feat, const int* __restrict__ jobs,
+                          const int* __restrict__ bounds, float* __restrict__ partial, float* __restrict__ db_partial,
+                          int njobs, int H, int W, int nf, int gc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int job = blockIdx.x % njobs, split = blockIdx.x / njobs;
+  // job row: z channel, conv (0..4), first output channel, cin, the conv's first weight in [dW_1 .. dW_5]
+  const int zc = jobs[5 * job], j = jobs[5 * job + 1], co0 = jobs[5 * job + 2], cin = jobs[5 * job + 3];
+  const int woff = jobs[5 * job + 4];
+  const int total = nf + 4 * gc, fstride = cin + kPad, npairs = 9 * (cin / 16);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mi = lane >> 3, r = lane & 7;
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  const int stage_elems = wgrad_stage_elems(cin);
+
+  // this lane's ldmatrix row in the staged feat for each of its pairs (tap ty, tx; input tile ct)
+  int poff[kWPairs];
+#pragma unroll
+  for (int i = 0; i < kWPairs; ++i) {
+    const int p = min(warp + kWarps * i, npairs - 1), ct = p / 9, tap = p % 9;
+    poff[i] = ((tap / 3) * kFW + (mi & 1) * 8 + r + tap % 3) * fstride + ct * 16 + (mi >> 1) * 8;
+  }
+
   const int tiles_y = (H + kTH - 1) / kTH, tiles_x = (W + kTW - 1) / kTW;
-  const int tiles = n * tiles_y * tiles_x;
-  for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+  // tile t's dz (16 channels of 128 pixels) and feat (cin channels of 10 x 18 pixels), zero outside the image
+  auto stage = [&](int t, bf16* zs) {
     const size_t img = (size_t)(t / (tiles_y * tiles_x)) * H * W;
     const int ty0 = ((t / tiles_x) % tiles_y) * kTH, tx0 = (t % tiles_x) * kTW;
-    __syncthreads();  // the last tile's reads are done
-    stage_tile(zs, zstride, fs, fstride, z, feat, jb, img, ty0, tx0, H, W, total);
-    __syncthreads();
-    if (with_db) sum_db(db, zs, zstride);
-#pragma unroll 1
-    for (int kk = 0; kk < kTH; ++kk) {  // k-step kk: the 16 pixels of tile row kk
-      // A = dz^T (16 channels x 16 pixels): matrices (pixels 0-7 | 8-15) x (channels 0-7 | 8-15)
-      unsigned a[4];
-      ldmatrix_x4_trans(a, zs + (kk * kTW + (mi >> 1) * 8 + r) * zstride + (mi & 1) * 8);
+    for (int i = tid; i < kTH * kTW * 2; i += kThreads) {
+      const int v = i & 1, pix = i >> 1, gy = ty0 + pix / kTW, gx = tx0 + pix % kTW;
+      const bool inside = gy < H && gx < W;
+      cp_async16(zs + pix * kZStride + v * 8, inside ? z + (img + (size_t)gy * W + gx) * total + zc + v * 8 : z,
+                 inside);
+    }
+    bf16* fs = zs + kTH * kTW * kZStride;
+    const int cv = cin / 8;
+    for (int i = tid; i < kFH * kFW * cv; i += kThreads) {
+      const int v = i % cv, pix = i / cv, gy = ty0 - 1 + pix / kFW, gx = tx0 - 1 + pix % kFW;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async16(fs + pix * fstride + v * 8, inside ? feat + (img + (size_t)gy * W + gx) * total + v * 8 : feat,
+                 inside);
+    }
+  };
+
+  float acc[kWPairs][2][4] = {};
+  float db = 0.f;  // growth convs: dz channel tid % 16 over pixels tid / 16 + 16 i
+  const bool growth = j < 4;
+  const int t0 = bounds[split], t1 = bounds[split + 1];
+  if (t0 < t1) stage(t0, stages);
+  cp_async_commit();
+  for (int t = t0; t < t1; ++t) {
+    bf16* zs = stages + ((t - t0) & 1) * stage_elems;
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1's stage
+    if (t + 1 < t1) stage(t + 1, stages + ((t + 1 - t0) & 1) * stage_elems);
+    cp_async_commit();
+    const bf16* fs = zs + kTH * kTW * kZStride;
+    if (growth)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int ct = warp + 4 * i;
-        if (ct >= ctiles) break;
-        // B = feat shifted by the tap (16 pixels x 16 channels): b0, b1 of two n-tiles of 8
-        unsigned b[4];
-        ldmatrix_x4_trans(b, fs + ((kk + ty) * kFW + (mi & 1) * 8 + r + tx) * fstride + ct * 16 + (mi >> 1) * 8);
-        mma_bf16(acc[i][0], a, b[0], b[1]);
-        mma_bf16(acc[i][1], a, b[2], b[3]);
-      }
+      for (int p = tid >> 4; p < kTH * kTW; p += kThreads / 16) db += __bfloat162float(zs[p * kZStride + (tid & 15)]);
+    switch ((npairs + kWarps - 1) / kWarps) {  // pairs per warp: 5 .. 9 for cin = 64 .. 128
+      case 1: wgrad_products<1>(acc, zs, fs, poff, fstride); break;
+      case 2: wgrad_products<2>(acc, zs, fs, poff, fstride); break;
+      case 3: wgrad_products<3>(acc, zs, fs, poff, fstride); break;
+      case 4: wgrad_products<4>(acc, zs, fs, poff, fstride); break;
+      case 5: wgrad_products<5>(acc, zs, fs, poff, fstride); break;
+      case 6: wgrad_products<6>(acc, zs, fs, poff, fstride); break;
+      case 7: wgrad_products<7>(acc, zs, fs, poff, fstride); break;
+      case 8: wgrad_products<8>(acc, zs, fs, poff, fstride); break;
+      default: wgrad_products<9>(acc, zs, fs, poff, fstride); break;
     }
   }
 
-  // C rows g, g + 8 are output channels, columns 2t, 2t + 1 input channels
-  float* out = partial + (size_t)blockIdx.y * (9 * (size_t)(4 * gc * nf + 6 * gc * gc + nf * total)) + jb.woff;
-  const int g = lane >> 2, tq = lane & 3;
+  // The block's slice of dW_j, rows co0 .. co0 + 15 of its OIHW weight, is
+  // contiguous: lay it out in shared memory, then write it 16 bytes at a time.
+  cp_async_wait_all();
+  __syncthreads();  // the stages are free
+  float* slice = reinterpret_cast<float*>(smem_raw);  // [16][cin][9]
+  float* dbs = slice + 16 * 9 * cin;                  // [16 pixel groups][16 channels]
+  const int g = lane >> 2, tq = lane & 3;  // C rows g, g + 8 are output channels, columns 2tq, 2tq + 1 input channels
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int ct = warp + 4 * i;
-    if (ct >= ctiles) break;
+  for (int i = 0; i < kWPairs; ++i) {
+    const int p = warp + kWarps * i, ct = p / 9, tap = p % 9;
+    if (p >= npairs) break;
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int co = jb.co0 + g + 8 * (e >> 1), ci = ct * 16 + nt * 8 + 2 * tq + (e & 1);
-        out[((size_t)co * jb.cin + ci) * 9 + jb.tap] = acc[i][nt][e];
+        const int co = g + 8 * (e >> 1), ci = ct * 16 + nt * 8 + 2 * tq + (e & 1);
+        slice[(co * cin + ci) * 9 + tap] = acc[i][nt][e];
       }
   }
-  if (with_db) db_partial[(size_t)blockIdx.y * 4 * gc + jb.j * gc + jb.co0 + threadIdx.x] = db;
+  if (growth) dbs[tid] = db;
+  __syncthreads();
+  const size_t wtotal = 9 * (size_t)(4 * gc * nf + 6 * gc * gc + nf * total);
+  float4* out = reinterpret_cast<float4*>(partial + split * wtotal + woff + (size_t)co0 * cin * 9);
+  for (int i = tid; i < 16 * 9 * cin / 4; i += kThreads) out[i] = reinterpret_cast<const float4*>(slice)[i];
+  if (growth && tid < 16) {  // the 16 pixel groups in a fixed order
+    float s = 0.f;
+    for (int q = 0; q < kThreads / 16; ++q) s += dbs[q * 16 + tid];
+    db_partial[(size_t)split * 4 * gc + j * gc + co0 + tid] = s;
+  }
 }
 
 __global__ void __launch_bounds__(kWThreads)
@@ -419,34 +514,39 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `w` is the transposed, flipped
-// weight chain packed for the dtype (bf16 fragment order or f32 tap-major);
+// weight chain packed for the dtype (bf16 chain order or f32 tap-major);
 // `z` (N x H x W x (nf + 4*gc)), `partial` (splits x the weight count) and
 // `db_partial` (splits x 4*gc) are scratch; dw is [dW_1 .. dW_5], each OIHW,
-// and db the growth convs' [db_1 .. db_4], both f32. Returns a cudaError_t
-// value; 0 is success.
+// and db the growth convs' [db_1 .. db_4], both f32. bf16 reads the dW plan:
+// `jobs` (njobs x 5 ints) and `bounds` (splits + 1 ints, each split's pixel
+// tiles); f32 ignores them. Returns a cudaError_t value; 0 is success.
 extern "C" int climsr_rdb_bwd(const void* feat, const void* g, const void* w, void* dx, void* z, float* partial,
-                              float* db_partial, float* dw, float* db, int n, int h, int w_, int nf, int gc, int th,
-                              int tw, int splits, float gy_scale, float gx_scale, int is_bf16, void* stream) {
+                              float* db_partial, float* dw, float* db, const int* jobs, const int* bounds, int njobs,
+                              int n, int h, int w_, int nf, int gc, int th, int tw, int splits, float gy_scale,
+                              float gx_scale, int is_bf16, void* stream) {
   if (n < 1 || h < 1 || w_ < 1 || th < 1 || tw < 1 || n > 65535 || splits < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
-  if (nf % 16 || gc % 16 || nf + 4 * gc > 128) return (int)cudaErrorInvalidValue;  // wgrad: <= 2 tiles of 16 per warp
+  if (nf % 16 || gc % 16 || nf + 4 * gc > 128) return (int)cudaErrorInvalidValue;  // wgrad: <= 8 input tiles
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int total = nf + 4 * gc;
   const dim3 grid((w_ + tw - 1) / tw, (h + th - 1) / th, n);
-  const dim3 wgrid(9 * (4 * (gc / 16) + nf / 16), splits);
   cudaError_t err;
   if (is_bf16) {
-    const size_t smem = (size_t)(th + 2 * kHalo) * (tw + 2 * kHalo) * (total + kPad) * sizeof(bf16);
+    if (!chain_fits(nf, gc, th, tw) || jobs == nullptr || bounds == nullptr || njobs != total / 16)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = chain_smem(nf, gc, th, tw);
     if ((err = allow_smem(rdb_bwd_dx_bf16_kernel, smem)) != cudaSuccess) return (int)err;
     rdb_bwd_dx_bf16_kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const bf16*>(g), static_cast<const bf16*>(feat), static_cast<bf16*>(dx), static_cast<bf16*>(z),
-        static_cast<const uint4*>(w), h, w_, nf, gc, th, tw, gy_scale, gx_scale);
+        static_cast<const bf16*>(w), h, w_, nf, gc, th, tw, gy_scale, gx_scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const size_t wsmem = (size_t)(kTH * kTW * (16 + kPad) + kFH * kFW * (total + kPad)) * sizeof(bf16);
+    const size_t wsmem = 2 * (size_t)wgrad_stage_elems(total) * sizeof(bf16);
     if ((err = allow_smem(rdb_wgrad_bf16_kernel, wsmem)) != cudaSuccess) return (int)err;
-    rdb_wgrad_bf16_kernel<<<wgrid, kWThreads, wsmem, s>>>(static_cast<const bf16*>(z), static_cast<const bf16*>(feat),
-                                                          partial, db_partial, n, h, w_, nf, gc);
+    rdb_wgrad_bf16_kernel<<<njobs * splits, kThreads, wsmem, s>>>(static_cast<const bf16*>(z),
+                                                                   static_cast<const bf16*>(feat), jobs, bounds,
+                                                                   partial, db_partial, njobs, h, w_, nf, gc);
   } else {
+    const dim3 wgrid(9 * (4 * (gc / 16) + nf / 16), splits);
     if (tw % kP) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)total * (th + 2 * kHalo) * (tw + 2 * kHalo) * sizeof(float);
     if ((err = allow_smem(rdb_bwd_dx_f32_kernel, smem)) != cudaSuccess) return (int)err;

@@ -30,26 +30,42 @@
 // padding holds for every conv: x and every growth value at a position
 // outside the image are zero in the buffer. Sums are f32.
 //
-// - bfloat16 (`rdb_fwd_bf16_kernel`): every conv is an implicit GEMM on the
-//   tensor cores (mma.sync m16n8k16, bf16 in, f32 sums). Rows are the region's
-//   pixels, columns the output channels, K = 9 taps x cin. The buffer is
-//   pixel-major (channels contiguous, padded by 8 so ldmatrix rows fall on
-//   distinct banks); A fragments come from it with ldmatrix, B fragments from
-//   weights the wrapper packs once in fragment order (one 16-byte load per
-//   lane per k-step and 16 output channels). Each warp item is 32 pixels x 16
-//   output channels.
+// - bfloat16 (`rdb_fwd_bf16_kernel`, nf = 64, gc = 16): the five convs are
+//   `conv_chain` of rdb_common.cuh, implicit GEMMs on the tensor cores with
+//   f32 sums (rows: the region's pixels; columns: output channels; K = 9 taps
+//   x cin). The buffer is pixel-major, channels padded by 8 so the eight rows
+//   of an ldmatrix fall on distinct banks; A fragments come from it with
+//   ldmatrix, so a tap is an address offset. The weights (packed once by the
+//   wrapper, `chain_index`) stream through a ring of two 18,432-byte slots
+//   in shared memory with cp.async, one chunk (16 input channels x 9 taps x
+//   64 outputs, or 64 inputs of a growth conv) ahead of the products, so each
+//   block reads its 249 KB of weights from L2 once. x's copies land with the
+//   first chunk. The growth convs (16 outputs) run on mma.sync m16n8k16,
+//   each warp holding up to 5 M-tiles of 16 pixels with no branch in the
+//   loop; conv5 (64 outputs) runs on wgmma m64n64k16, two 64-pixel M-blocks
+//   per warpgroup, A from registers and B straight from the ring. wgmma is
+//   not used for the growth convs: with 16 outputs each A fragment feeds
+//   only 16 columns, and their time goes to reading A from shared memory
+//   (16 operations per byte), which wgmma would not change.
+//   Shared memory: 36,864 bytes of ring + 26 x 26 x 136 x 2 = 183,872 bytes
+//   of buffer = 220,736 of the 232,448 a block may use, so one block of 8
+//   warps per SM.
 // - float32 (`rdb_fwd_f32_kernel`): CUDA-core FMA over a channel-major buffer,
 //   each work item 2 pixels x 8 output channels, weights tap-major
 //   [tap][cin][cout] read through L1 (a warp-wide broadcast).
 //
-// Bound on this card (A): at the inference path's shape (16 tiles of 128 x 128, nf=64,
-// gc=16, bf16) one launch needs 65.2 GFLOP against 100 MB of traffic, so it is
-// bound by operations (66 us at the tensor cores' dense bf16 rate, 30 us of
-// memory). The design keeps every intermediate on chip, so the traffic stays
-// at x, x0 and out; what it pays instead is the halo recompute (~1.27x the
-// useful MACs at 16 x 16 tiles) and mma.sync instead of wgmma. B1 at the
-// training shape (192 x 64 x 32 x 32, bf16) needs 48.9 GFLOP (49 us) against
-// 126 MB (38 us), so it is bound by operations too.
+// Bound on this card (A): at the inference path's shape (16 tiles of 128 x
+// 128, nf=64, gc=16, bf16) one launch needs 65.2 GFLOP against 100 MB of
+// traffic, so it is bound by operations (66 us at the tensor cores' dense
+// bf16 rate, 30 us of memory). The design keeps every intermediate on chip,
+// so the traffic stays at x, x0 and out. What still holds it back (SM clocks
+// per block from climsr_tpu_torch/scripts/rdb_phase_clocks.py on an H100):
+// the growth convs take 58% of a block's time, bound by reading their A
+// fragments from shared memory (16 operations per byte); conv5 28%; x's load
+// 8% and the epilogue 6%, with nothing to overlap them (one block per SM);
+// and the halo recompute, ~1.27x the useful MACs at 16 x 16 tiles. B1 at the
+// training shape (192 x 64 x 32 x 32, bf16) needs 48.9 GFLOP (49 us)
+// against 126 MB (38 us), so it is bound by operations too.
 
 #include "rdb_common.cuh"
 
@@ -59,21 +75,22 @@ using namespace rdb;
 
 // ---------------------------------------------------------------- bfloat16, tensor cores
 
-// Growth conv epilogue: bias, LeakyReLU, round to bf16, into the buffer's
-// channel slice; zero at positions outside the image (SAME padding).
+// Growth conv k's epilogue: bias, LeakyReLU, round to bf16, into the
+// buffer's channel slice nf + k*gc; zero at positions outside the image
+// (SAME padding).
 struct GrowthStore {
   bf16* feat;
   const float* b;
-  int cp, pw, ch, oy, ox, H, W;
-  __device__ __forceinline__ void operator()(int sy, int sx, int c, float v0, float v1) const {
+  int cp, pw, nf, gc, oy, ox, H, W;
+  __device__ __forceinline__ void operator()(int k, int sy, int sx, int c, float v0, float v1) const {
     const int gy = oy + sy, gx = ox + sx;
     __nv_bfloat162 r = __floats2bfloat162_rn(0.f, 0.f);
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      v0 += b[c];
-      v1 += b[c + 1];
+      v0 += b[k * gc + c];
+      v1 += b[k * gc + c + 1];
       r = __floats2bfloat162_rn(v0 > 0.f ? v0 : 0.2f * v0, v1 > 0.f ? v1 : 0.2f * v1);
     }
-    *reinterpret_cast<__nv_bfloat162*>(feat + (sy * pw + sx) * cp + ch + c) = r;
+    *reinterpret_cast<__nv_bfloat162*>(feat + (sy * pw + sx) * cp + nf + k * gc + c) = r;
   }
 };
 
@@ -101,38 +118,35 @@ struct ResidualStore {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+// one block per SM: the ring and the buffer take 220,736 of the 232,448 bytes a block may use
+__global__ void __launch_bounds__(kThreads, 1)
     rdb_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x0, bf16* __restrict__ out,
-                        bf16* __restrict__ saved, const uint4* __restrict__ w, const float* __restrict__ b, int H,
+                        bf16* __restrict__ saved, const bf16* __restrict__ w, const float* __restrict__ b, int H,
                         int W, int nf, int gc, int th, int tw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* feat = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // chain_smem: the ring, then the buffer
   const int ph = th + 2 * kHalo, pw = tw + 2 * kHalo, cp = nf + 4 * gc + kPad;
+  bf16* feat = ring + 2 * kSlotElems;
   const int oy = blockIdx.y * th - kHalo;  // image coordinates of buffer pixel (0, 0)
   const int ox = blockIdx.x * tw - kHalo;
   const size_t img = (size_t)blockIdx.z * H * W;
+  phase_clock(0);
 
-  // x with its halo, 8 channels (16 bytes) at a time; zero outside the image
+  // x with its halo, 8 channels (16 bytes) at a time, zero outside the image;
+  // its copies land together with the first weight chunk
   const int vecs = nf / 8;
   for (int i = threadIdx.x; i < ph * pw * vecs; i += kThreads) {
     const int v = i % vecs, pix = i / vecs;
     const int gy = oy + pix / pw, gx = ox + pix % pw;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      val = *reinterpret_cast<const uint4*>(x + (img + (size_t)gy * W + gx) * nf + v * 8);
-    *reinterpret_cast<uint4*>(feat + pix * cp + v * 8) = val;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    cp_async16(feat + pix * cp + v * 8, inside ? x + (img + (size_t)gy * W + gx) * nf + v * 8 : x, inside);
   }
-  __syncthreads();
 
-  const uint4* wk = w;
-  for (int k = 0; k < 4; ++k) {
-    const int cin = nf + k * gc;
-    const GrowthStore epi{feat, b + k * gc, cp, pw, cin, oy, ox, H, W};
-    conv3x3_mma(feat, cp, pw, 1 + k, ph - 2 - 2 * k, pw - 2 - 2 * k, cin, gc, wk, epi);
-    wk += (size_t)(gc / 16) * (9 * cin / 16) * 32;
-    __syncthreads();
-  }
-  if (saved != nullptr) {  // B1: the tile's [x, h_1 .. h_4] to device memory, 16 bytes at a time
+  const GrowthStore growth{feat, b, cp, pw, nf, gc, oy, ox, H, W};
+  const ResidualStore last{feat, x0, out, b + 4 * gc, img, cp, pw, oy, ox, H, W, nf};
+  conv_chain(feat, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
+    if (saved == nullptr) return;
+    // B1: the tile's [x, h_1 .. h_4] to device memory, 16 bytes at a time
     const int total = nf + 4 * gc, tv = total / 8;
     for (int i = threadIdx.x; i < th * tw * tv; i += kThreads) {
       const int v = i % tv, pix = i / tv, sy = pix / tw, sx = pix % tw;
@@ -141,9 +155,7 @@ __global__ void __launch_bounds__(kThreads)
         *reinterpret_cast<uint4*>(saved + (img + (size_t)gy * W + gx) * total + v * 8) =
             *reinterpret_cast<const uint4*>(feat + ((kHalo + sy) * pw + kHalo + sx) * cp + v * 8);
     }
-  }
-  const ResidualStore epi{feat, x0, out, b + 4 * gc, img, cp, pw, oy, ox, H, W, nf};
-  conv3x3_mma(feat, cp, pw, kHalo, th, tw, nf + 4 * gc, nf, wk, epi);
+  });
 }
 
 // ---------------------------------------------------------------- float32, CUDA cores
@@ -251,10 +263,9 @@ int forward(const void* x, const void* x0, void* out, void* saved, const void* w
   if (n < 1 || h < 1 || w_ < 1 || th < 1 || tw < 1 || n > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (nf % 16 || gc % 16) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(th + 2 * kHalo) * (tw + 2 * kHalo) * (nf + 4 * gc + kPad) * sizeof(bf16);
-    return launch<decltype(&rdb_fwd_bf16_kernel), bf16, uint4>(&rdb_fwd_bf16_kernel, smem, x, x0, out, saved, w, b,
-                                                               n, h, w_, nf, gc, th, tw, s);
+    if (!chain_fits(nf, gc, th, tw)) return (int)cudaErrorInvalidValue;
+    return launch<decltype(&rdb_fwd_bf16_kernel), bf16, bf16>(&rdb_fwd_bf16_kernel, chain_smem(nf, gc, th, tw), x,
+                                                              x0, out, saved, w, b, n, h, w_, nf, gc, th, tw, s);
   }
   if (nf % kQ || gc % kQ || tw % kP) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(nf + 4 * gc) * (th + 2 * kHalo) * (tw + 2 * kHalo) * sizeof(float);
@@ -265,7 +276,7 @@ int forward(const void* x, const void* x0, void* out, void* saved, const void* w
 }  // namespace
 
 // Plain C entry points (bound with ctypes). `w` is the wrapper's packing for
-// the dtype: bf16 fragment order (is_bf16) or f32 tap-major. Each returns a
+// the dtype: bf16 chain order (is_bf16) or f32 tap-major. Each returns a
 // cudaError_t value; 0 is success.
 //
 // Kernel A: the forward.
@@ -273,6 +284,14 @@ extern "C" int climsr_rdb_fwd(const void* x, const void* x0, void* out, const vo
                               int h, int w_, int nf, int gc, int th, int tw, int is_bf16, void* stream) {
   return forward(x, x0, out, nullptr, w, b, n, h, w_, nf, gc, th, tw, is_bf16, stream);
 }
+
+#ifdef CLIMSR_PHASE_CLOCKS
+// The phase-clock build only: where the bf16 kernel writes its clocks
+// (blocks x kPhases int64 on the device, or null for none).
+extern "C" int climsr_rdb_phase_clocks(void* clocks) {
+  return (int)cudaMemcpyToSymbol(rdb::g_phase_clocks, &clocks, sizeof(clocks));
+}
+#endif
 
 // Kernel B1: the forward that also writes feat (N x H x W x (nf + 4*gc)).
 extern "C" int climsr_rdb_fwd_save(const void* x, const void* x0, void* out, void* feat, const void* w,

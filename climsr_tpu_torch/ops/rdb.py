@@ -29,12 +29,24 @@ residual is folded into the same write: ``x0 + 0.2 * (x + 0.2 * conv5)``.
   D, ``_rdb_kernel`` ``rdb.py:83``): NHWC in and out, HWIO weights. D computes
   A's function in another TPU layout, so on the card it launches kernel A.
 
-What bounds the kernel on an H100, and what its design does about it, is
-written at the top of ``csrc/rdb_fwd.cu``: the block is bound by operations
-(about 124k MAC per pixel against 6 bytes of traffic per channel-pixel in bf16),
-and the kernel keeps the whole concatenation in shared memory so that only x,
-x0 and the output cross device memory. bf16 runs on the tensor cores
-(``mma.sync``), float32 on the CUDA cores.
+What bounds the kernels on an H100, and what their design does about it, is
+written at the top of ``csrc/rdb_fwd.cu`` and ``csrc/rdb_bwd.cu``. In short:
+the block is bound by operations (about 124k MAC per pixel against 6 bytes of
+traffic per channel-pixel in bf16), and the kernels keep the whole
+concatenation in shared memory so that only x, x0 and the output (and, in
+training, feat and z) cross device memory. In bf16 (nf=64, gc=16) A, B1 and
+B2's input-gradient pass share one conv chain (``csrc/rdb_common.cuh``
+``conv_chain``): the weights, packed once in :func:`chain_index`'s order,
+stream through a two-slot ring in shared memory; the 16-channel growth convs
+run on ``mma.sync`` and the 64-channel last conv on ``wgmma``. B2's weight
+gradient stages each pixel tile once for all nine taps, in splits given by
+:func:`wgrad_plan`, with per-split f32 partials summed in a fixed order (no
+atomics). Shared memory: the chain takes 220,736 of the 232,448 bytes a block
+may use at 16 x 16 tiles (one block per SM), the dW pass two 55,104-byte
+stages (two blocks per SM). What still holds them back is reading the growth
+convs' A fragments from shared memory (16 outputs per fragment), x's load and
+the epilogues with nothing to overlap them, and the ~1.27x halo recompute.
+float32 runs on the CUDA cores, at other widths too.
 
 Tensors are NCHW in ``torch.channels_last`` memory format (NHWC storage), so
 the cuDNN convs around the trunk and the kernel share one layout.
@@ -43,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -54,13 +67,15 @@ Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]  # five (OIHW weight, bias
 
 _SOURCES = ("rdb_fwd.cu",)  # kernels A and B1
 _BWD_SOURCES = ("rdb_bwd.cu",)  # kernel B2
-_MAX_SPLITS = 32  # kernel B2's dW partials: at most this many splits of the pixels
+_MAX_SPLITS = 32  # kernel B2's f32 dW partials: at most this many splits of the pixels
+_WGRAD_TILE = (8, 16)  # kernel B2's bf16 dW pass: pixel tiles of 8 rows x 16 columns (kTH, kTW)
 _HALO = 5
 _PAD = 8  # bf16 buffer channels per pixel: nf + 4*gc + _PAD (spreads ldmatrix rows over the banks)
+_RING_BYTES = 2 * 9 * 16 * 64 * 2  # bf16 chain: two weight slots of 9 taps x 16 inputs x 64 outputs
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # output tiles (th, tw) tried in order; the first whose feature buffer fits is used
 _TILES = {
-    torch.bfloat16: ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4)),
+    torch.bfloat16: ((16, 16),),  # the bf16 chain takes nf=64, gc=16 only, which fit 16 x 16
     torch.float32: ((8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2)),
 }
 
@@ -85,7 +100,9 @@ class PackedWeights(NamedTuple):
     back, and the biases ``[b1..b4, b5]`` in float32.
 
     - float32: tap-major per conv, ``[3*ky + kx][cin][cout]`` (HWIO).
-    - bfloat16: the tensor cores' B-fragment order (:func:`fragment_index`).
+    - bfloat16: the chain engine's order (:func:`chain_index`): B fragments
+      of the tensor cores, input-channel group outermost, so the kernel
+      streams each conv through its shared-memory ring in chunks.
     """
 
     w: torch.Tensor
@@ -125,29 +142,79 @@ def fragment_index(cout: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return n_idx.expand(shape).reshape(-1), k_idx.expand(shape).reshape(-1)
 
 
-def pack_rdb_weights(weights: Weights, dtype: torch.dtype = torch.float32) -> PackedWeights:
-    """Pack the (OIHW weight, bias) pairs for the kernel of ``dtype``, on their device."""
+def chain_index(cout: int, cin: int, last: bool = False) -> torch.Tensor:
+    """Flat indices into one conv's (cout, 9*cin) weight matrix (k = tap*cin +
+    ci) in the order the bf16 chain engine (``csrc/rdb_common.cuh``
+    ``conv_chain``) streams it: k-step (input-channel group c, tap) after
+    k-step, c outermost, so a ring slot holds whole groups with all their
+    taps. Each k-step holds the 16 k = tap*cin + 16c .. + 15 of all cout
+    outputs:
+
+    - a growth conv (mma.sync): [cout/16][32 lanes][4 words][2 halves], in
+      :func:`fragment_index`'s B-fragment order;
+    - the ``last`` conv (wgmma's K-major B tile, no swizzle):
+      [cout/8][2 k halves][8 outputs][8 k], 8 x 8 core matrices of 128 bytes.
+    """
+    if last:
+        c, tap, nb, kh, nr, kr = (torch.arange(s).view([-1 if i == d else 1 for i in range(6)])
+                                  for d, s in enumerate((cin // 16, 9, cout // 8, 2, 8, 8)))
+        return ((8 * nb + nr) * (9 * cin) + tap * cin + 16 * c + 8 * kh + kr).reshape(-1)
+    n_idx, k_idx = fragment_index(cout, 9 * cin)
+    flat = (n_idx * (9 * cin) + k_idx).view(cout // 16, 9, cin // 16, 32, 4, 2)
+    return flat.permute(2, 1, 0, 3, 4, 5).reshape(-1)
+
+
+def _conv_shapes(nf: int, gc: int) -> List[Tuple[int, int, int, int]]:
+    return [(gc if k < 4 else nf, nf + k * gc, 3, 3) for k in range(5)]
+
+
+@functools.lru_cache(maxsize=16)
+def _chain_gather(nf: int, gc: int, transposed: bool, device: torch.device) -> torch.Tensor:
+    """One index into the five forward OIHW weights, flattened and
+    concatenated, that gives the bf16 chain's packing in a single gather:
+    of the forward chain, or (``transposed``) of :func:`transposed_chain`
+    (kernel B2's input-gradient chain). Kept on ``device``."""
+    shapes = _conv_shapes(nf, gc)
+    sizes = [math.prod(s) for s in shapes]
+    convs = [(part.view(s), None) for part, s in zip(torch.split(torch.arange(sum(sizes)), sizes), shapes)]
+    if transposed:
+        convs = transposed_chain(convs)
+    parts = []
+    for k, (wt, _) in enumerate(convs):
+        cout, cin = wt.shape[:2]
+        parts.append(wt.permute(0, 2, 3, 1).reshape(-1)[chain_index(cout, cin, last=k == 4)])
+    return torch.cat(parts).to(device)
+
+
+def _pack_chain(weights: Weights, transposed: bool) -> torch.Tensor:
+    """The bf16 chain packing of the five (OIHW weight, bias) pairs' weights, on their device."""
+    gc, nf = weights[0][0].shape[0], weights[4][0].shape[0]
+    flat = torch.cat([wt.detach().reshape(-1) for wt, _ in weights]).to(torch.bfloat16)
+    return flat[_chain_gather(nf, gc, transposed, flat.device)]
+
+
+def _widths(weights: Weights) -> Tuple[int, int]:
+    """(nf, gc) of an RDB's five (OIHW weight, bias) pairs; raises on any other shape."""
     if len(weights) != 5:
         raise ValueError(f"an RDB has five convs, got {len(weights)}")
     gc, nf = weights[0][0].shape[0], weights[4][0].shape[0]
     for k, (wt, bs) in enumerate(weights):
-        cout = gc if k < 4 else nf
-        want = (cout, nf + k * gc, 3, 3)
-        if tuple(wt.shape) != want or tuple(bs.shape) != (cout,):
+        want = _conv_shapes(nf, gc)[k]
+        if tuple(wt.shape) != want or tuple(bs.shape) != want[:1]:
             raise ValueError(f"conv{k + 1}: weight {tuple(wt.shape)} / bias {tuple(bs.shape)}, expected {want}")
+    return nf, gc
+
+
+def pack_rdb_weights(weights: Weights, dtype: torch.dtype = torch.float32) -> PackedWeights:
+    """Pack the (OIHW weight, bias) pairs for the kernel of ``dtype``, on their device."""
+    nf, gc = _widths(weights)
     b = torch.cat([bs.detach().float().reshape(-1) for _, bs in weights]).contiguous()
     if dtype == torch.float32:
         w = torch.cat([wt.detach().float().permute(2, 3, 1, 0).reshape(-1) for wt, _ in weights])
     elif dtype == torch.bfloat16:
         if nf % 16 or gc % 16:
             raise ValueError(f"the bf16 kernel needs nf and gc divisible by 16, got nf={nf}, gc={gc}")
-        parts = []
-        for wt, _ in weights:
-            cout, cin = wt.shape[:2]
-            wk = wt.detach().to(torch.bfloat16).permute(0, 2, 3, 1).reshape(cout, 9 * cin)  # k = tap*cin + ci
-            n_idx, k_idx = _fragment_index_on(cout, 9 * cin, wk.device)
-            parts.append(wk[n_idx, k_idx])
-        w = torch.cat(parts)
+        w = _pack_chain(weights, transposed=False)
     else:
         raise TypeError(f"the RDB kernel takes float32 or bfloat16, got {dtype}")
     return PackedWeights(w.contiguous(), b, nf, gc, dtype)
@@ -157,7 +224,7 @@ def _tile(nf: int, gc: int, dtype: torch.dtype) -> Tuple[int, int]:
     for th, tw in _TILES[dtype]:
         ph, pw = th + 2 * _HALO, tw + 2 * _HALO
         if dtype == torch.bfloat16:
-            smem = ph * pw * (nf + 4 * gc + _PAD) * 2
+            smem = ph * pw * (nf + 4 * gc + _PAD) * 2 + _RING_BYTES
         else:
             smem = (nf + 4 * gc) * ph * pw * 4
         if smem <= _SMEM_LIMIT:
@@ -176,7 +243,7 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = cuda_lib.load("climsr_rdb_bwd", _BWD_SOURCES)
     lib.climsr_rdb_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.climsr_rdb_bwd.restype = ctypes.c_int
     return lib
@@ -191,10 +258,11 @@ def _check(x: torch.Tensor, x0: Optional[torch.Tensor], packed: PackedWeights) -
         raise ValueError("fused_rdb kernel needs x in torch.channels_last memory format")
     if x.shape[1] != packed.nf:
         raise ValueError(f"x has {x.shape[1]} channels, the weights expect nf={packed.nf}")
-    step = 16 if x.dtype == torch.bfloat16 else 8
-    if packed.nf % step or packed.gc % step:
-        raise ValueError(f"fused_rdb kernel needs nf and gc divisible by {step} in {x.dtype}, "
+    if x.dtype == torch.bfloat16 and (packed.nf, packed.gc) != (64, 16):
+        raise ValueError(f"fused_rdb bf16 kernel takes nf=64, gc=16 (the flagship widths), "
                          f"got nf={packed.nf}, gc={packed.gc}")
+    if packed.nf % 8 or packed.gc % 8:
+        raise ValueError(f"fused_rdb kernel needs nf and gc divisible by 8, got nf={packed.nf}, gc={packed.gc}")
     if x.shape[0] > 65535:
         raise ValueError(f"fused_rdb kernel takes at most 65535 images per launch, got {x.shape[0]}")
     if packed.dtype != x.dtype or packed.w.dtype != x.dtype or packed.b.dtype != torch.float32:
@@ -362,6 +430,46 @@ def transposed_chain(weights: Weights) -> List[Tuple[torch.Tensor, torch.Tensor]
     return chain
 
 
+def wgrad_plan(n: int, h: int, w: int, nf: int, gc: int, splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Which block of kernel B2's bf16 dW pass computes what: ``(jobs, bounds)``, int32.
+
+    ``jobs`` has one row per 16-channel group of ``z = [dz_5, dz_4 .. dz_1]``
+    (``(nf + 4*gc) / 16`` rows): (its first channel in z, the conv j (0-based)
+    whose output gradient it is, its first output channel in conv j, conv j's
+    cin, conv j's first weight in the flat ``[dW_1 .. dW_5]``). ``bounds``
+    (``splits + 1``) splits the pixel tiles: split s takes tiles ``bounds[s]
+    .. bounds[s + 1] - 1``, tile t being 8 x 16 pixels of image ``t // (ty *
+    tx)`` at rows ``8 * ((t // tx) % ty)``, columns ``16 * (t % tx)``, with ty,
+    tx the tiles per column and row. Block b takes job ``b % len(jobs)`` over
+    split ``b // len(jobs)``: rows co0 .. co0 + 15 of dW_j, every input channel
+    and tap, into that split's partial, and for a growth conv db_j at those
+    rows.
+    """
+    total = nf + 4 * gc
+    woff = [0]
+    for cout, cin, kh, kw in _conv_shapes(nf, gc):
+        woff.append(woff[-1] + cout * cin * kh * kw)
+    jobs = []
+    for zc in range(0, total, 16):
+        j, co0 = (4, zc) if zc < nf else (3 - (zc - nf) // gc, (zc - nf) % gc)
+        jobs.append((zc, j, co0, nf + j * gc, woff[j]))
+    th, tw = _WGRAD_TILE
+    tiles = n * -(-h // th) * -(-w // tw)
+    bounds = [s * tiles // splits for s in range(splits + 1)]
+    return torch.tensor(jobs, dtype=torch.int32), torch.tensor(bounds, dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _wgrad_plan_on(n: int, h: int, w: int, nf: int, gc: int, splits: int, device: torch.device):
+    """:func:`wgrad_plan` kept on ``device``: one upload per shape, not per call."""
+    return tuple(t.to(device) for t in wgrad_plan(n, h, w, nf, gc, splits))
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check_bwd(feat: torch.Tensor, g: torch.Tensor, packed: PackedWeights) -> None:
     _check(g, None, packed)
     total = packed.nf + 4 * packed.gc
@@ -387,15 +495,26 @@ def fused_rdb_bwd(
         return rdb_bwd_reference(feat, g, weights, gy_scale, gx_scale)
     if g.device.type != "cuda":
         raise ValueError(f"the RDB kernels run on CUDA tensors, got {g.device}")
-    packed = pack_rdb_weights(transposed_chain(weights), g.dtype)
+    bf16 = g.dtype == torch.bfloat16
+    nf, gc = _widths(weights)
+    if bf16:  # one gather from the forward weights, no transposed copies; the chain has no biases
+        no_bias = torch.empty(0, dtype=torch.float32, device=g.device)
+        packed = PackedWeights(_pack_chain(weights, transposed=True), no_bias, nf, gc, g.dtype)
+    else:
+        packed = pack_rdb_weights(transposed_chain(weights), g.dtype)
     _check_bwd(feat, g, packed)
     n, nf, h, w = g.shape
-    gc = packed.gc
-    total = nf + 4 * gc
     dx = torch.empty_like(g, memory_format=torch.channels_last)
     z = torch.empty_like(feat, memory_format=torch.channels_last)
-    sizes = [(gc if k < 4 else nf) * (nf + k * gc) * 9 for k in range(5)]
-    splits = max(1, min(_MAX_SPLITS, n * -(-h // 8) * -(-w // 16)))
+    sizes = [math.prod(s) for s in _conv_shapes(nf, gc)]
+    tiles = n * -(-h // _WGRAD_TILE[0]) * -(-w // _WGRAD_TILE[1])
+    if bf16:  # two blocks per SM: (nf + 4*gc) / 16 jobs x splits
+        splits = max(1, min(tiles, 2 * _sm_count(g.device) // ((nf + 4 * gc) // 16)))
+        jobs, bounds = _wgrad_plan_on(n, h, w, nf, gc, splits, g.device)
+        plan = (jobs.data_ptr(), bounds.data_ptr(), jobs.shape[0])
+    else:
+        splits = max(1, min(_MAX_SPLITS, tiles))
+        plan = (None, None, 0)
     f32 = dict(dtype=torch.float32, device=g.device)
     partial = torch.empty(splits * sum(sizes), **f32)
     db_partial = torch.empty(splits * 4 * gc, **f32)
@@ -406,15 +525,14 @@ def fused_rdb_bwd(
     with torch.cuda.device(g.device):
         err = lib.climsr_rdb_bwd(
             feat.data_ptr(), g.data_ptr(), packed.w.data_ptr(), dx.data_ptr(), z.data_ptr(), partial.data_ptr(),
-            db_partial.data_ptr(), dw.data_ptr(), db.data_ptr(), n, h, w, nf, gc, th, tw, splits,
-            float(gy_scale), float(gx_scale), int(g.dtype == torch.bfloat16),
-            torch.cuda.current_stream(g.device).cuda_stream,
+            db_partial.data_ptr(), dw.data_ptr(), db.data_ptr(), *plan, n, h, w, nf, gc, th, tw, splits,
+            float(gy_scale), float(gx_scale), int(bf16), torch.cuda.current_stream(g.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_rdb_bwd kernel launch failed: CUDA error {err}")
     fused_rdb_bwd.launches += 1
     dws = [part.view(wt.shape) for part, (wt, _) in zip(torch.split(dw, sizes), weights)]
-    dbs = list(torch.split(db, gc)) + [gy_scale * g.float().sum((0, 2, 3))]
+    dbs = list(torch.split(db, gc)) + [gy_scale * g.sum((0, 2, 3), dtype=torch.float32)]
     return dx, dws, dbs
 
 

@@ -131,39 +131,82 @@ def test_packed_weights_are_tap_major_hwio(rng):
     np.testing.assert_array_equal(packed.b.numpy(), np.concatenate([ws[2 * k + 1] for k in range(5)]))
 
 
-def test_bf16_packing_is_the_mma_b_fragment_order(rng):
-    """For the tensor-core kernel: per group of 16 output channels and k-step
-    of 16 (k = tap*cin + ci), lane l holds the b0/b1 registers of
-    mma.m16n8k16's B fragment for two n-tiles: register r of n-tile j is
-    {B[2t + 8r][g], B[2t + 8r + 1][g]} with g = l // 4, t = l % 4 and
-    B[k][n] = W[16q + 8j + n][16s + k] (PTX ISA, m16n8k16 fragments)."""
-    nf, gc = 16, 16
-    _, _, ws = _case(rng, 1, 4, 4, nf, gc)
-    weights = _torch_args(np.zeros((1, 1, 1, nf), np.float32), np.zeros((1, 1, 1, nf), np.float32), ws)[2]
-    packed = rdb.pack_rdb_weights(weights, torch.bfloat16)
-    assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32
+def _assert_chain_order(weights, packed_w):
     offset = 0
-    for wt, _ in weights:
+    for k, (wt, _) in enumerate(weights):
         cout, cin = wt.shape[:2]
-        wk = wt.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(cout, 9 * cin).float().numpy()
+        wb = wt.to(torch.bfloat16).float().numpy()  # (cout, cin, 3, 3)
         n_words = cout * 9 * cin
-        got = packed.w[offset : offset + n_words].float().numpy().reshape(cout // 16, 9 * cin // 16, 32, 4, 2)
+        part = packed_w[offset : offset + n_words].float().numpy()
         offset += n_words
+        if k == 4:
+            # wgmma's B tile, K-major without swizzle (PTX ISA, wgmma shared-memory layouts): core
+            # matrix (output block b, k half h) is 8 rows (outputs 8b + r) of 8 k (16 bytes), at
+            # (2b + h) * 128 bytes; the kernel's descriptor says 128 bytes along K, 256 along N
+            got = part.reshape(cin // 16, 9, cout // 8, 2, 8, 8)
+            want = np.empty_like(got)
+            for c in range(cin // 16):
+                for tap in range(9):
+                    for b in range(cout // 8):
+                        for h in range(2):
+                            for r in range(8):
+                                want[c, tap, b, h, r] = wb[8 * b + r, 16 * c + 8 * h: 16 * c + 8 * h + 8,
+                                                           tap // 3, tap % 3]
+            np.testing.assert_array_equal(got, want)
+            continue
+        got = part.reshape(cin // 16, 9, cout // 16, 32, 4, 2)
         want = np.empty_like(got)
-        for q in range(cout // 16):
-            for s in range(9 * cin // 16):
-                for lane in range(32):
-                    g, t = divmod(lane, 4)
-                    for j in range(2):
-                        for r in range(2):
-                            for e in range(2):
-                                want[q, s, lane, 2 * j + r, e] = wk[16 * q + 8 * j + g, 16 * s + 2 * t + 8 * r + e]
+        for c in range(cin // 16):
+            for tap in range(9):
+                for q in range(cout // 16):
+                    for lane in range(32):
+                        g, t = divmod(lane, 4)
+                        for j in range(2):
+                            for r in range(2):
+                                for e in range(2):
+                                    want[c, tap, q, lane, 2 * j + r, e] = wb[
+                                        16 * q + 8 * j + g, 16 * c + 2 * t + 8 * r + e, tap // 3, tap % 3]
         np.testing.assert_array_equal(got, want)
-    assert offset == packed.w.numel()
+    assert offset == packed_w.numel()
+
+
+def test_bf16_packing_is_the_mma_b_fragment_order(rng):
+    """For the tensor-core chain engine (``conv_chain``): each conv's weights,
+    one after the other, k-step (ci group c, tap) after k-step, so that a ring
+    slot holds whole input-channel groups with all their taps. A growth
+    conv's k-step is [16-output group q][lane l][register]: lane l holds the
+    b0/b1 registers of mma.m16n8k16's B fragment for two n-tiles, register r
+    of n-tile j being {B[2t + 8r][g], B[2t + 8r + 1][g]} with g = l // 4, t =
+    l % 4 and B[k][n] = W[16q + 8j + n][16c + k] at that tap (PTX ISA,
+    m16n8k16 fragments). The last conv's k-step is wgmma's B tile (see
+    ``_assert_chain_order``). At nf=16 and at the flagship nf=64 (gc=16)."""
+    for nf in (16, 64):
+        _, _, ws = _case(rng, 1, 4, 4, nf, 16)
+        weights = _torch_args(np.zeros((1, 1, 1, nf), np.float32), np.zeros((1, 1, 1, nf), np.float32), ws)[2]
+        packed = rdb.pack_rdb_weights(weights, torch.bfloat16)
+        assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32
+        _assert_chain_order(weights, packed.w)
     with pytest.raises(ValueError, match="16"):
         rdb.pack_rdb_weights(_torch_args(np.zeros((1, 1, 1, 16), np.float32),
                                          np.zeros((1, 1, 1, 16), np.float32), _case(rng, 1, 4, 4, 16, 8)[2])[2],
                              torch.bfloat16)
+
+
+def test_b2_bf16_packing_is_the_transposed_chain_in_chain_order(rng):
+    """Kernel B2 packs its input-gradient chain with one gather from the
+    forward weights: transposed_chain's weights, in the chain engine's order."""
+    _, _, ws = _case(rng, 1, 4, 4, 64, 16)
+    weights = _torch_args(np.zeros((1, 1, 1, 64), np.float32), np.zeros((1, 1, 1, 64), np.float32), ws)[2]
+    got = rdb._pack_chain(weights, transposed=True)
+    assert got.dtype == torch.bfloat16
+    _assert_chain_order(rdb.transposed_chain(weights), got)
+
+
+def test_bf16_tile_fits_the_buffer_and_the_weight_ring():
+    """At the flagship widths the 16 x 16 tile's feature buffer (26 x 26
+    pixels x 136 channels) and the two 18,432-byte weight slots fit one block."""
+    assert rdb._tile(64, 16, torch.bfloat16) == (16, 16)
+    assert 26 * 26 * 136 * 2 + rdb._RING_BYTES == 220736 <= rdb._SMEM_LIMIT
 
 
 def test_pack_rejects_inconsistent_shapes(rng):

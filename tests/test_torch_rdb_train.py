@@ -151,6 +151,48 @@ def test_backward_chain_of_kernel_b2_is_the_input_gradient(rng, res, scales):
     assert (packed.nf, packed.gc) == (NF, GC)
 
 
+def test_wgrad_plan_covers_every_dw_entry_and_growth_bias_once_per_split():
+    """Kernel B2's bf16 dW pass at the flagship widths (nf=64, gc=16) and the
+    training shape's 33 splits: in every split the blocks' slices (rows co0 ..
+    co0 + 15 of dW_j, all cin inputs and 9 taps) cover each of the 124,416
+    weights exactly once, and the growth jobs each of the 64 growth biases."""
+    nf, gc, splits = 64, 16, 33
+    jobs, bounds = rdb.wgrad_plan(192, 32, 32, nf, gc, splits)
+    assert jobs.dtype == bounds.dtype == torch.int32 and jobs.shape == (8, 5) and bounds.shape == (splits + 1,)
+    sizes = [cout * cin * 9 for cout, cin, _, _ in rdb._conv_shapes(nf, gc)]
+    assert sum(sizes) == 124416
+    weights_hit = np.zeros(sum(sizes), np.int64)
+    bias_hit = np.zeros(4 * gc, np.int64)
+    for zc, j, co0, cin, woff in jobs.tolist():
+        assert cin == nf + j * gc and woff == sum(sizes[:j])
+        # z = [dz_5, dz_4 .. dz_1]: channel zc belongs to the output gradient of conv j
+        assert (zc < nf) == (j == 4) and zc == (co0 if j == 4 else nf + (3 - j) * gc + co0)
+        weights_hit[woff + co0 * cin * 9: woff + (co0 + 16) * cin * 9] += 1
+        if j < 4:
+            bias_hit[j * gc + co0: j * gc + co0 + 16] += 1
+    assert (weights_hit == 1).all() and (bias_hit == 1).all()  # the same for every split: the jobs do not vary
+    b = bounds.tolist()
+    assert b[0] == 0 and b[-1] == 192 * 4 * 2 and all(lo <= hi for lo, hi in zip(b, b[1:]))
+
+
+@pytest.mark.parametrize("n,h,w,splits", [(3, 29, 45, 33), (2, 8, 16, 5), (1, 7, 5, 3)],
+                         ids=["ragged-3x29x45", "one-tile-each-2x8x16", "more-splits-than-tiles-1x7x5"])
+def test_wgrad_plan_splits_cover_each_pixel_once(n, h, w, splits):
+    """The splits' tiles, mapped to pixels as the kernel maps them (8 x 16
+    tiles clipped at the image's edge), cover every pixel of every image
+    exactly once; a split may be empty but never negative."""
+    jobs, bounds = rdb.wgrad_plan(n, h, w, 64, 16, splits)
+    ty, tx = -(-h // 8), -(-w // 16)
+    hit = np.zeros((n, h, w), np.int64)
+    b = bounds.tolist()
+    for s in range(splits):
+        assert b[s] <= b[s + 1]
+        for t in range(b[s], b[s + 1]):
+            img, y0, x0 = t // (ty * tx), 8 * ((t // tx) % ty), 16 * (t % tx)
+            hit[img, y0:y0 + 8, x0:x0 + 16] += 1
+    assert b[0] == 0 and b[-1] == n * ty * tx and (hit == 1).all()
+
+
 def test_wrappers_on_cpu_count_no_launch(rng):
     x, _, g, ws = _case(rng)
     weights = _torch_weights(ws)
