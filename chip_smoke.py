@@ -52,15 +52,18 @@ Phases (each raises on failure; nothing is caught):
    and db; at the training shape B2's dX pass, dW pass, reduction and
    wrapper ops each timed on the device, and two B2 calls on the same inputs
    bitwise equal; kernel C at 192 x 64 x 128 x 128 and 2 x 64 x 45 x 91;
-   times beside the bounds (and C's library conv),
+   times beside the bounds (and C's library conv), two C calls bitwise equal,
 7. pre-training at full width: 6 steps through the kernels and 6 through
    the plain versions from the same seeded init and batch; losses and
    grad norms compared; exactly 33 B1 + 33 B2 + 1 C launches per step and no
-   A; ms/step, samples/s, a profiled step; then one eval step (33 A
-   launches, 16 finite metrics),
+   A; ms/step, samples/s, a profiled step (with the device time of every
+   kernel inside the fusion head's backward, ``FusionConv1``: kernel C and the
+   wrapper's own ops); then one eval step (33 A launches, 16 finite metrics),
 8. kernels D, E and F against their plain versions, bf16 and f32: D at
    192 x 64 x 32 x 32 and 3 x 64 x 29 x 45, E and F at 192 x 64 x 128 x 128
-   and 2 x 64 x 45 x 91; times beside the bounds. Then D's and E's own
+   and 2 x 64 x 45 x 91; times beside the bounds; E also at the sweep's HR
+   head, 16 x 64 x 512 x 512 bf16, timed against its plain version (cuDNN's
+   two convs) and not listed; two E calls bitwise equal. Then D's and E's own
    paths, counted: the flagship generator's first RRDB through D (three
    launches) and its HR tail through E (one launch), each against the
    generator's own modules,
@@ -234,10 +237,12 @@ def phase_kernel(device) -> dict:
     return result
 
 
-def device_breakdown(run, top: int = 6, what: str = "sweep") -> list:
+def device_breakdown(run, top: int = 6, what: str = "sweep", under: str = "") -> list:
     """Run ``run()`` under ``torch.profiler`` and print the device's busy share
     of the wall time and the kernels that take the most device time; returns
-    the device rows of ``key_averages()``."""
+    the device rows of ``key_averages()``. With ``under``, also print the
+    device time of every kernel launched inside the CPU ops whose name
+    contains it (an autograd node's backward, say), by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -251,6 +256,21 @@ def device_breakdown(run, top: int = 6, what: str = "sweep") -> list:
           f"({100 * busy_us / wall_us:.1f}%; no device time means the trace saw no kernels)")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"#   {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:100]}")
+    if under:
+        inside = {}
+
+        def walk(e):
+            for k in e.kernels:
+                inside[k.name] = inside.get(k.name, 0.0) + k.duration / 1e3
+            for c in e.cpu_children:
+                walk(c)
+
+        for e in prof.events():
+            if under in e.name and not (e.cpu_parent is not None and under in e.cpu_parent.name):
+                walk(e)
+        print(f"# device ms inside {under} ({len(inside)} kernels; none means the trace did not link them):")
+        for name, ms in sorted(inside.items(), key=lambda kv: -kv[1]):
+            print(f"#   {ms:10.4f} ms  {name[:100]}")
     return kernels
 
 
@@ -413,6 +433,16 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return abs_err, abs_err / max(ref.float().abs().max().item(), 1e-30)
 
 
+def assert_bitwise_repeatable(tag: str, run) -> None:
+    """Two calls of ``run()`` on the same inputs give bitwise-equal bf16 outputs, or raise."""
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    same = torch.equal(first.view(torch.int16), second.view(torch.int16))
+    print(f"# {tag}: two calls on the same inputs give bitwise-equal outputs: {same}")
+    if not same:
+        raise AssertionError(f"{tag} is not deterministic: two calls differ")
+
+
 def phase_train_kernels(device) -> dict:
     """Kernels B1 and B2 against rdb_fwd_save_reference / rdb_bwd_reference."""
     from climsr_tpu_torch.ops.rdb import (
@@ -535,6 +565,7 @@ def phase_head_kernel(device) -> dict:
                 print(f"# {tag}: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
                       f"library conv_transpose2d {result['library_ms']:.4f} ms, "
                       f"bound {result['bound_ms']:.4f} ms ({result['bound_by']})")
+                assert_bitwise_repeatable(tag, lambda: conv9_dx_c0(g, weight))
     return result
 
 
@@ -616,7 +647,8 @@ def phase_pretrain(device) -> dict:
         raise AssertionError(f"pre-training: expected launches B1, B2, C, A = {expected}, counted {launches}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"pre-training: the loss did not decrease ({losses[0]} -> {losses[-1]})")
-    device_breakdown(lambda: step(state, batch), what="pre-training step")
+    # the fusion head's backward: kernel C and the wrapper's other device ops
+    device_breakdown(lambda: step(state, batch), what="pre-training step", under="FusionConv1Backward")
     with plain_training():
         *_, plain_losses, plain_norms, plain_ms, _ = run("through the plain versions")
     loss_err = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
@@ -682,13 +714,22 @@ def tail_inputs(n, h, w, dtype, device):
     return x, [((torch.rand(s, generator=gen) * 2 - 1) * bound).to(device) for s in shapes]
 
 
+def hr_tail_bound(x: torch.Tensor) -> tuple:
+    """Kernel E's bound: HRconv 64 -> 64 and conv_last 64 -> 1, x and out once and the weights."""
+    px = x.shape[0] * x.shape[2] * x.shape[3]
+    flops = 2.0 * 9 * NF * (NF + 1) * px
+    return bound(flops, px * 2 * (NF + 1) + 2 * 9 * NF * (NF + 1) + 4 * (NF + 1), x.dtype)
+
+
 def phase_hr_tail(device) -> dict:
-    """Kernel E against hr_tail_reference."""
+    """Kernel E against hr_tail_reference (the library's two cuDNN convs), at
+    the training head's shape, a ragged one and, timed too but not listed,
+    the sweep's HR head (16 tiles of 512 x 512)."""
     from climsr_tpu_torch.ops.head import fused_hr_tail, hr_tail_reference
 
     result = {}
-    for n, h, w in ((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91)):
-        for dtype in (torch.float32, torch.bfloat16):
+    for n, h, w in ((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91), (16, 512, 512)):
+        for dtype in (torch.float32, torch.bfloat16) if n != 16 else (torch.bfloat16,):
             x, weights = tail_inputs(n, h, w, dtype, device)
             got = fused_hr_tail(x, *weights)
             torch.cuda.synchronize()
@@ -698,15 +739,16 @@ def phase_hr_tail(device) -> dict:
             print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {TAIL_TOL[dtype]:g})")
             if got.shape != (n, 1, h, w) or not (rel <= TAIL_TOL[dtype]):
                 raise AssertionError(f"{tag}: kernel disagrees with hr_tail_reference ({rel:.3e})")
-            if (n, dtype) == (TRAIN_N, torch.bfloat16):
-                px = n * h * w
-                flops = 2.0 * 9 * NF * (NF + 1) * px  # HRconv 64 -> 64 and conv_last 64 -> 1
-                b = bound(flops, px * 2 * (NF + 1) + 2 * 9 * NF * (NF + 1) + 4 * (NF + 1), dtype)
-                result = dict(max_abs_err=abs_err, ms=cuda_ms(lambda: fused_hr_tail(x, *weights)),
-                              plain_ms=cuda_ms(lambda: hr_tail_reference(x, weights)),
-                              bound_ms=b[0], bound_by=b[1], library_ms=None)
-                print(f"# {tag}: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
-                      f"bound {result['bound_ms']:.4f} ms ({result['bound_by']})")
+            if dtype == torch.bfloat16 and n in (TRAIN_N, 16):
+                b = hr_tail_bound(x)
+                timed = dict(max_abs_err=abs_err, ms=cuda_ms(lambda: fused_hr_tail(x, *weights)),
+                             plain_ms=cuda_ms(lambda: hr_tail_reference(x, weights)),
+                             bound_ms=b[0], bound_by=b[1], library_ms=None)
+                print(f"# {tag}: kernel {timed['ms']:.4f} ms, plain (cuDNN's two convs) {timed['plain_ms']:.4f} ms, "
+                      f"bound {timed['bound_ms']:.4f} ms ({timed['bound_by']})")
+                assert_bitwise_repeatable(tag, lambda: fused_hr_tail(x, *weights))
+                if n == TRAIN_N:
+                    result = timed
     return result
 
 

@@ -1,5 +1,5 @@
 // Shared pieces of the residual-dense-block kernels (rdb_fwd.cu, rdb_bwd.cu)
-// and of kernels E and F (hr_tail.cu, dc0.cu).
+// and of kernels C, E and F (conv9_dx_c0.cu, hr_tail.cu, dc0.cu).
 //
 // The forward (kernels A and B1) and the input-gradient half of the backward
 // (kernel B2) are the same shape of computation: a chain of five 3x3 convs
@@ -7,9 +7,13 @@
 // each conv over a region one pixel smaller than the last. They differ only in
 // what is loaded first and in each conv's epilogue, so the chain itself lives
 // here: `conv_chain` (bf16, tensor cores, weights streamed through a
-// shared-memory ring) and `conv3x3_fma` (f32, CUDA cores, one conv).
-// `conv3x3_mma` is one bf16 conv with its weights read from L2; kernel E
-// (hr_tail.cu) runs its HRconv on it.
+// shared-memory ring) and `conv3x3_fma` (f32, CUDA cores, one conv). Below
+// them are the instructions every bf16 kernel builds on: cp.async copies,
+// ldmatrix, mma.sync m16n8k16 and wgmma m64n64k16 with its shared-memory
+// descriptor. Kernel E (hr_tail.cu) runs its 64 -> 64 HRconv the way
+// `conv_chain` runs its last conv (wgmma, B from shared memory in the same
+// K-major layout), with all of HRconv's weights resident in shared memory;
+// kernel C (conv9_dx_c0.cu) runs mma.sync over a ring of staged rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -109,69 +113,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One conv3x3 over a rh x rw region (origin (r0, r0) in buffer coordinates)
-// as an implicit GEMM: M = the region's pixels, N = cout, K = 9 * cin. The
-// buffer is pixel-major with cp channels per pixel and pw pixels per row. `w`
-// holds the conv's weights in fragment order: for each group q of 16 output
-// channels and each k-step s (16 of K = tap * cin + ci), 32 lanes x 16 bytes.
-// The epilogue gets (buffer y, buffer x, channel c, value c, value c + 1).
-template <class Epilogue>
-__device__ __forceinline__ void conv3x3_mma(const bf16* feat, int cp, int pw, int r0, int rh, int rw, int cin,
-                                            int cout, const uint4* __restrict__ w, const Epilogue& epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int npix = rh * rw, mgroups = (npix + 31) / 32, csteps = cin / 16, ksteps = 9 * csteps;
-  const int items = mgroups * (cout / 16);
-  for (int item = warp; item < items; item += kWarps) {
-    const int q = item / mgroups, mg = item % mgroups;
-    // the buffer row this lane feeds to ldmatrix, for each of the two M-tiles
-    int base[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      int m = mg * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      if (m >= npix) m = 0;  // rows past the region: any valid pixel, result dropped
-      base[mt] = ((r0 + m / rw) * pw + r0 + m % rw) * cp + (lane >> 4) * 8;
-    }
-    float acc[2][2][4] = {};
-    const uint4* wq = w + (size_t)q * ksteps * 32 + lane;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = ((tap / 3 - 1) * pw + (tap % 3 - 1)) * cp;
-#pragma unroll 2
-      for (int c = 0; c < csteps; ++c) {
-        const uint4 bw = __ldg(wq);
-        wq += 32;
-        unsigned a[2][4];
-        ldmatrix_x4(a[0], feat + base[0] + off + c * 16);
-        ldmatrix_x4(a[1], feat + base[1] + off + c * 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][0], a[mt], bw.x, bw.y);
-          mma_bf16(acc[mt][1], a[mt], bw.z, bw.w);
-        }
-      }
-    }
-    // accumulator rows g and g + 8 of each M-tile, channels 2t, 2t + 1 of each n-tile
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = mg * 32 + mt * 16 + g + 8 * half;
-        if (m >= npix) continue;
-        const int sy = r0 + m / rw, sx = r0 + m % rw;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          epi(sy, sx, q * 16 + nt * 8 + 2 * t, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-      }
-  }
-}
-
 // ---------------------------------------------------------------- the bf16 conv chain, weights through a ring
 
 // The chain's weights arrive packed conv after conv, k-step (ci group of 16,
 // tap) after k-step, ci group outermost. A growth conv's k-step is
 // [32 lanes][8 bf16], the lanes holding mma.m16n8k16's B fragments for its 16
-// outputs (see `conv3x3_mma`). The last conv's k-step is wgmma's K-major B
+// outputs (ops/rdb.py `fragment_index`). The last conv's k-step is wgmma's K-major B
 // tile of 16 k x 64 outputs without swizzle: core matrices of 8 outputs x 8 k
 // (128 contiguous bytes, one output per 16-byte row), core matrix (output
 // block b, k half h) at (2b + h) * 128 bytes. A chunk is kSlotCols / cout

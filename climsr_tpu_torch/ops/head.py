@@ -10,7 +10,13 @@ The counterpart of ``climsr_tpu/ops/pallas/head.py``: lrelu -> HRconv 3x3
 - :func:`fused_hr_tail` is the wrapper. For a CUDA tensor it launches the
   hand-written kernel ``csrc/hr_tail.cu`` (which replaces the TPU kernel
   ``_hr_tail_kernel``, ``head.py:58``) or raises; for a CPU tensor it runs the
-  plain version. It counts its launches in ``fused_hr_tail.launches``.
+  plain version. It counts its launches in ``fused_hr_tail.launches``. In
+  bf16 the kernel's blocks are persistent (one per SM, its two warpgroups
+  walking 12 x 16 output tiles each on their own); HRconv runs on ``wgmma``
+  with all its weights resident in shared memory, packed by
+  :func:`pack_hrconv` in the RDB chain's last-conv order, and conv_last on
+  the tensor cores too, as a projection onto its 9 taps
+  (:func:`pack_conv_last`) and shift-adds. f32 runs on the CUDA cores.
 - :class:`FusedHRTail` carries the gradient: its backward is torch autograd
   through the plain version, the counterpart of the JAX ``custom_vjp``, whose
   backward is XLA's VJP of the reference (``head.py:189-200``).
@@ -25,16 +31,58 @@ the CUDA kernel takes any H and W.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
 from climsr_tpu_torch.ops import cuda_lib
-from climsr_tpu_torch.ops.rdb import _fragment_index_on, _needs_grad
+from climsr_tpu_torch.ops.rdb import _fragment_index_on, _needs_grad, chain_index
 
 _SOURCES = ("hr_tail.cu",)
 NF = 64  # the kernel's channel count (ESRGAN's nf at the flagship width)
+
+
+@functools.lru_cache(maxsize=8)
+def _hrconv_index_on(device: torch.device) -> torch.Tensor:
+    """``chain_index(64, 64, last=True)`` kept on ``device``: one upload, not one per call."""
+    return chain_index(NF, NF, last=True).to(device)
+
+
+def pack_hrconv(whr: torch.Tensor) -> torch.Tensor:
+    """HRconv's OIHW weights rounded to bf16 in the bf16 kernel's order: the
+    RDB chain's last-conv packing (:func:`~climsr_tpu_torch.ops.rdb.chain_index`,
+    k = tap * 64 + ci): k-step (16 input channels, tap), ci group outermost,
+    each wgmma's K-major B tile of 16 k x 64 outputs without swizzle."""
+    wk = whr.detach().to(torch.bfloat16).permute(0, 2, 3, 1).reshape(-1)
+    return wk[_hrconv_index_on(whr.device)].contiguous()
+
+
+def pack_conv_last(wcl: torch.Tensor) -> torch.Tensor:
+    """conv_last's (1, 64, 3, 3) weights rounded to bf16 as the bf16 kernel's
+    projection B: a (16, 64) matrix, row tap = 3 ky + kx (rows 9-15 zero), in
+    ``mma.m16n8k16`` B-fragment order (:func:`~climsr_tpu_torch.ops.rdb.fragment_index`,
+    4 k-steps of 16 channels)."""
+    taps = wcl.detach().to(torch.bfloat16)[0].permute(1, 2, 0).reshape(9, NF)
+    b = torch.cat([taps, taps.new_zeros(7, NF)])
+    n_idx, k_idx = _fragment_index_on(16, NF, wcl.device)
+    return b[n_idx, k_idx].contiguous()
+
+
+def pack_tail(whr, bhr, wcl, bcl, dtype: torch.dtype):
+    """The kernel's parameters for x's ``dtype``, rounded to it as the plain
+    version reads them: (HRconv's weights, its bias, conv_last's weights, its
+    bias). bf16: :func:`pack_hrconv`, :func:`pack_conv_last`; f32: HRconv
+    tap-major [tap][cin][cout], conv_last [tap][cin]. Biases in f32."""
+    if dtype == torch.bfloat16:
+        wp, wl = pack_hrconv(whr), pack_conv_last(wcl)
+    else:
+        wp = whr.detach().float().permute(2, 3, 1, 0).contiguous()
+        wl = wcl.detach().float()[0].permute(1, 2, 0).contiguous()
+    bh = bhr.detach().to(dtype).float().contiguous()
+    bl = bcl.detach().to(dtype).float().contiguous()
+    return wp, bh, wl, bl
 
 
 def hr_tail_reference(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -71,16 +119,7 @@ def _launch(x: torch.Tensor, whr, bhr, wcl, bcl) -> torch.Tensor:
     if not x.is_contiguous(memory_format=torch.channels_last) or x.data_ptr() % 16:
         raise ValueError("fused_hr_tail kernel needs x in torch.channels_last memory format, 16-byte aligned")
     dt = x.dtype
-    if dt == torch.bfloat16:  # k = tap * 64 + ci, in mma B-fragment order
-        wk = whr.detach().to(dt).permute(0, 2, 3, 1).reshape(NF, 9 * NF)
-        n_idx, k_idx = _fragment_index_on(NF, 9 * NF, x.device)
-        wp = wk[n_idx, k_idx].contiguous()
-    else:  # tap-major [tap][cin][cout]
-        wp = whr.detach().float().permute(2, 3, 1, 0).contiguous()
-    # the parameters rounded to x's type, as the plain version reads them
-    bh = bhr.detach().to(dt).float().contiguous()
-    wl = wcl.detach().to(dt).float()[0].permute(1, 2, 0).contiguous()  # [tap][cin]
-    bl = bcl.detach().to(dt).float().contiguous()
+    wp, bh, wl, bl = pack_tail(whr, bhr, wcl, bcl, dt)
     out = torch.empty((n, 1, h, w), dtype=dt, device=x.device)
     if out.numel() == 0:
         return out

@@ -11,7 +11,13 @@ is an SRCNN over ``concat(out, elevation, mask)``; in training only channel 0
 - :func:`conv9_dx_c0` is the wrapper. For a CUDA tensor it launches the
   hand-written kernel ``csrc/conv9_dx_c0.cu`` (which replaces the TPU kernel
   ``_dx_c0_kernel``, ``head_bwd.py:53``) or raises; for a CPU tensor it runs
-  the plain version. It counts its launches in ``conv9_dx_c0.launches``.
+  the plain version. It counts its launches in ``conv9_dx_c0.launches``. In
+  bf16 (cout = 64) the kernel runs each output row as a GEMM on the tensor
+  cores, P_y[s, dx] = sum over (dy, c) of g[y + dy - 4, s, c] * Wrev[dy, dx,
+  c], and then adds P's anti-diagonals, out[y, x] = sum_dx P_y[x + dx - 4,
+  dx] (:func:`wrev_matrix` is that B, :func:`pack_wrev` its packing); g is
+  read from device memory once, through a ring of staged rows. f32 runs on
+  the CUDA cores.
 - :class:`FusionConv1` (:func:`fusion_conv1`) is the head's conv1 with that
   backward (``head_bwd.py:124-160``): the forward and dW/db are the library's
   convs, as the JAX package leaves them to XLA; dX is the kernel, exact for
@@ -37,7 +43,8 @@ from climsr_tpu_torch.ops import cuda_lib
 from climsr_tpu_torch.ops.rdb import _fragment_index_on
 
 _SOURCES = ("conv9_dx_c0.cu",)
-_CHUNK = 16  # the kernel walks the output channels 16 at a time
+_CHUNK = 16  # the f32 kernel walks the output channels 16 at a time
+_BF16_COUT = 64  # the bf16 kernel's g channels: the fusion head's conv1 outputs
 
 
 def conv9_dx_c0_reference(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -46,6 +53,25 @@ def conv9_dx_c0_reference(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor
     n, _, h, w = g.shape
     w0 = weight[:, :1].float()
     return torch.nn.grad.conv2d_input((n, 1, h, w), w0, g.float(), padding=4).to(g.dtype)
+
+
+def wrev_matrix(weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's B as a (16, 9 * cout) matrix: row dx, column k = dy *
+    cout + c holds Wrev[dy, dx, c] = W[c, 0, 8 - dy, 8 - dx] for dx < 9; rows
+    9-15 (N padded to two mma n-tiles) are zero. In ``weight``'s dtype and device."""
+    cout = weight.shape[0]
+    wrev = weight[:, 0].flip(1, 2).permute(2, 1, 0).reshape(9, 9 * cout)  # [dx][dy * cout + c]
+    return torch.cat([wrev, wrev.new_zeros(7, 9 * cout)])
+
+
+def pack_wrev(weight: torch.Tensor) -> torch.Tensor:
+    """:func:`wrev_matrix` rounded to bf16 in ``mma.m16n8k16`` B-fragment order
+    (:func:`~climsr_tpu_torch.ops.rdb.fragment_index`): [36 k-steps][32
+    lanes][4 words][2 halves], k-step s = 4 dy + c // 16, one 16-byte vector
+    per lane and k-step, the gather index kept on the weight's device."""
+    b = wrev_matrix(weight.to(torch.bfloat16))
+    n_idx, k_idx = _fragment_index_on(16, b.shape[1], weight.device)
+    return b[n_idx, k_idx].contiguous()
 
 
 def _library() -> ctypes.CDLL:
@@ -58,7 +84,8 @@ def _library() -> ctypes.CDLL:
 def conv9_dx_c0(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Kernel C: as :func:`conv9_dx_c0_reference`. On a CUDA tensor it launches
     the kernel on the current stream or raises; on a CPU tensor it runs the
-    plain version. ``g`` must be channels_last (NHWC storage)."""
+    plain version. ``g`` must be channels_last (NHWC storage); in bf16 it must
+    have 64 channels and ``weight`` is read rounded to bf16."""
     if g.device.type == "cpu":
         return conv9_dx_c0_reference(g, weight)
     if g.device.type != "cuda":
@@ -73,17 +100,22 @@ def conv9_dx_c0(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if cout % _CHUNK or n > 65535:
         raise ValueError(f"conv9_dx_c0 kernel takes cout divisible by {_CHUNK} and at most 65535 images, "
                          f"got {cout}, {n}")
-    if not g.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("conv9_dx_c0 kernel needs g in torch.channels_last memory format")
-    # wf[c][u][v] = W[c, 0, 8 - u, 8 - v]: the taps of channel 0, flipped, in f32
-    wf = weight[:, 0].float().flip(1, 2).contiguous()
+    if not g.is_contiguous(memory_format=torch.channels_last) or g.data_ptr() % 16:
+        raise ValueError("conv9_dx_c0 kernel needs g in torch.channels_last memory format, 16-byte aligned")
+    bf16 = g.dtype == torch.bfloat16
+    if bf16:
+        if cout != _BF16_COUT:
+            raise ValueError(f"conv9_dx_c0 bf16 kernel takes {_BF16_COUT} channels, got {cout}")
+        wk = pack_wrev(weight.detach())
+    else:  # wf[c][u][v] = W[c, 0, 8 - u, 8 - v]: the taps of channel 0, flipped, in f32
+        wk = weight.detach()[:, 0].float().flip(1, 2).contiguous()
     out = torch.empty((n, 1, h, w), dtype=g.dtype, device=g.device)
     if out.numel() == 0:
         return out
     lib = _library()
     with torch.cuda.device(g.device):
-        err = lib.climsr_conv9_dx_c0(g.data_ptr(), wf.data_ptr(), out.data_ptr(), n, h, w, cout,
-                                     int(g.dtype == torch.bfloat16), torch.cuda.current_stream(g.device).cuda_stream)
+        err = lib.climsr_conv9_dx_c0(g.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, w, cout, int(bf16),
+                                     torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv9_dx_c0 kernel launch failed: CUDA error {err}")
     conv9_dx_c0.launches += 1
@@ -97,14 +129,20 @@ class FusionConv1(torch.autograd.Function):
     """``apply(x, weight, bias)``: a SAME 9x9 conv computed in x's dtype (the
     parameters rounded to it at use) whose input gradient is kernel C for
     channel 0 and zero for channels 1+. Parameter gradients come back rounded
-    to x's dtype and then in the parameters' own, as through flax's cast."""
+    to x's dtype and then in the parameters' own, as through flax's cast.
+
+    The conv reads x in ``channels_last`` (x has 3 channels: a small copy
+    where it comes NCHW), so its output, and the gradient that comes back,
+    are NHWC as kernel C and cuDNN's dW conv read them: a 64-channel g that
+    came NCHW would cost a full copy per step. dx is NCHW, channel 0 from C."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
         wc = weight.to(x.dtype)
-        ctx.save_for_backward(x, wc)
+        xc = x.contiguous(memory_format=torch.channels_last)
+        ctx.save_for_backward(xc, wc)
         ctx.param_dtypes = (weight.dtype, bias.dtype)
-        return F.conv2d(x, wc, bias.to(x.dtype), padding=4)
+        return F.conv2d(xc, wc, bias.to(x.dtype), padding=4)
 
     @staticmethod
     def backward(ctx, g):
@@ -116,7 +154,7 @@ class FusionConv1(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             db = g.sum((0, 2, 3)).to(ctx.param_dtypes[1])
         if ctx.needs_input_grad[0]:
-            dx = torch.zeros_like(x)
+            dx = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
             dx[:, :1] = conv9_dx_c0(g, wc)
         return dx, dw, db
 

@@ -107,6 +107,98 @@ def test_hr_tail_parameter_gradients_match_the_jax_vjp(rng):
         _close(got.grad, want)
 
 
+def _lrelu(v):
+    return np.where(v > 0, v, np.float32(0.2) * v)
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 13, 19), (2, 12, 16)])
+def test_e_tiles_projection_and_shift_adds_give_the_reference(rng, n, h, w):
+    """Kernel E's bf16 plan in numpy (f32): 12 x 16 output tiles; per tile,
+    lrelu(x) staged with a 2-pixel halo (16 x 20, zero outside), HRconv over
+    the 14 x 18 region as nine tap-shifted products, bias, lrelu, zero outside
+    the image; conv_last as a projection of the region onto its 9 taps, then
+    out = sum over the taps of proj[pixel + tap][tap] + bias. Every output is
+    written once and the plan gives hr_tail_reference, to 1e-4 of max|ref|."""
+    x, (whr, bhr, wcl, bcl) = _tail_case(rng, n, h, w)
+    th, tw = 12, 16
+    out, hits = np.zeros((n, h, w), np.float32), np.zeros((n, h, w), np.int64)
+    a = _lrelu(x)
+    taps = wcl[..., 0].reshape(9, 64)  # [3 ky + kx][c]
+    for img in range(n):
+        for ty0 in range(0, h, th):
+            for tx0 in range(0, w, tw):
+                stage = np.zeros((th + 4, tw + 4, 64), np.float32)
+                ys, xs = np.arange(ty0 - 2, ty0 + th + 2), np.arange(tx0 - 2, tx0 + tw + 2)
+                iy, ix = (ys >= 0) & (ys < h), (xs >= 0) & (xs < w)
+                stage[np.ix_(iy, ix)] = a[img][np.ix_(ys[iy], xs[ix])]
+                hid = np.zeros((th + 2, tw + 2, 64), np.float32)
+                for ky in range(3):
+                    for kx in range(3):
+                        hid += stage[ky:ky + th + 2, kx:kx + tw + 2] @ whr[ky, kx]
+                ry, rx = np.arange(ty0 - 1, ty0 + th + 1), np.arange(tx0 - 1, tx0 + tw + 1)
+                inside = ((ry >= 0) & (ry < h))[:, None] & ((rx >= 0) & (rx < w))[None, :]
+                hid = np.where(inside[..., None], _lrelu(hid + bhr), 0)
+                proj = hid @ taps.T  # (14, 18, 9)
+                o = sum(proj[t // 3:t // 3 + th, t % 3:t % 3 + tw, t] for t in range(9)) + bcl[0]
+                oh, ow = min(th, h - ty0), min(tw, w - tx0)
+                out[img, ty0:ty0 + oh, tx0:tx0 + ow] = o[:oh, :ow]
+                hits[img, ty0:ty0 + oh, tx0:tx0 + ow] += 1
+    assert (hits == 1).all()
+    want = head.hr_tail_reference(_nchw(x), _oihw_weights((whr, bhr, wcl, bcl)))[:, 0]
+    _close(out, want.numpy())
+
+
+def test_e_packed_hrconv_is_wgmma_k_major_core_matrices(rng):
+    """pack_hrconv is HRconv's weights rounded to bf16 in the RDB chain's
+    last-conv order: k-step (16 input channels gl, tap), gl outermost, each
+    wgmma's K-major B tile of 16 k x 64 outputs without swizzle (PTX ISA,
+    wgmma shared-memory layouts): core matrix (output block b, k half kh) is
+    8 rows (outputs 8b + r) of 8 k (16 bytes), at (2b + kh) * 128 bytes, as
+    the kernel's descriptor says (128 bytes along K, 256 along N)."""
+    whr = torch.from_numpy(rng.normal(size=(64, 64, 3, 3)).astype(np.float32))
+    got = head.pack_hrconv(whr).float().numpy().reshape(4, 9, 8, 2, 8, 8)
+    wb = whr.to(torch.bfloat16).float().numpy()
+    for gl in range(4):
+        for tap in range(9):
+            for b in range(8):
+                for kh in range(2):
+                    for r in range(8):
+                        np.testing.assert_array_equal(
+                            got[gl, tap, b, kh, r], wb[8 * b + r, 16 * gl + 8 * kh:16 * gl + 8 * kh + 8, tap // 3, tap % 3])
+
+
+def test_e_packed_conv_last_is_the_mma_b_fragment_order(rng):
+    """pack_conv_last is B[k][n] = Wcl[0, k, n // 3, n % 3] (k = input
+    channel, n = tap, zero for n >= 9) rounded to bf16 in mma.m16n8k16's
+    B-fragment order (PTX ISA): lane l (g = l // 4, t = l % 4) of k-step s
+    holds {B[16s + 2t][g], B[16s + 2t + 1][g]}, {B[16s + 2t + 8][g],
+    B[16s + 2t + 9][g]}, then the same for n = 8 + g."""
+    wcl = torch.from_numpy(rng.normal(size=(1, 64, 3, 3)).astype(np.float32))
+    got = head.pack_conv_last(wcl).float().numpy().reshape(4, 32, 4, 2)
+    wb = wcl.to(torch.bfloat16).float().numpy()[0]
+    for s in range(4):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for word in range(4):
+                for half in range(2):
+                    n, k = g + 8 * (word // 2), 16 * s + 2 * t + 8 * (word % 2) + half
+                    assert got[s, lane, word, half] == (wb[k, n // 3, n % 3] if n < 9 else 0.0)
+
+
+def test_e_shared_memory_fits_one_block():
+    """Kernel E's bf16 budget (csrc/hr_tail.cu kSmemBf16) at 12 x 16 output
+    tiles: HRconv's weights, and for each of the two warpgroups an x stage of
+    16 x 20 pixels x 72 channels and the 14 x 18-pixel intermediate at 64
+    channels (bf16), over which conv_last's projection (14 x 18 x 9 f32)
+    goes; the region is four 64-row M-blocks."""
+    weights = 9 * 64 * 64 * 2
+    stage = (12 + 4) * (16 + 4) * (64 + 8) * 2
+    hidden = (12 + 2) * (16 + 2) * 64 * 2
+    assert (12 + 2) * (16 + 2) * 9 * 4 <= hidden
+    assert weights + 2 * (stage + hidden) == 230400 <= 232448
+    assert (12 + 2) * (16 + 2) <= 4 * 64
+
+
 def test_hr_tail_wrapper_refuses_other_devices(rng):
     x, weights = _tail_case(rng, 1, 4, 4)
     with pytest.raises(ValueError):

@@ -78,6 +78,102 @@ def test_fusion_conv1_matches_jax_forward_and_vjp(rng):
     _close(tb.grad, db)
 
 
+def _c_plan(g, weight, blocks):
+    """Kernel C's bf16 plan in numpy (f32), with its work split: the
+    (image, strip, output row) sequence cut into ``blocks`` equal shares,
+    each walked down in segments of one (image, strip); strips of T output
+    columns, at most 128 wide. For each output row, P = A @ B^T with A the
+    row's source columns x (dy, c) (g zero outside) and B = ``wrev_matrix``,
+    then out[j] = sum_dx P[j + dx][dx]. Returns (out, how often each output
+    was written)."""
+    n, h, w, c = g.shape
+    b = head_bwd.wrev_matrix(torch.from_numpy(weight)).numpy()  # (16, 9c): [dx][dy * c + ci]
+    strips = -(-w // 128)
+    t = -(-w // strips)
+    total = n * strips * h
+    out, hits = np.zeros((n, h, w), np.float32), np.zeros((n, h, w), np.int64)
+    for blk in range(blocks):
+        f, end = total * blk // blocks, total * (blk + 1) // blocks
+        while f < end:
+            seg, y0 = divmod(f, h)
+            length = min(h - y0, end - f)
+            f += length
+            img, st = divmod(seg, strips)
+            x0 = st * t
+            tw = min(t, w - x0)
+            cols = np.arange(x0 - 4, x0 + tw + 4)  # the npix = tw + 8 source columns
+            for y in range(y0, y0 + length):
+                a = np.zeros((len(cols), 9, c), np.float32)
+                for dy in range(9):
+                    r = y + dy - 4
+                    ok = (cols >= 0) & (cols < w)
+                    if 0 <= r < h:
+                        a[ok, dy] = g[img, r, cols[ok]]
+                p = a.reshape(len(cols), 9 * c) @ b.T  # (npix, 16), columns 9..15 zero
+                assert not p[:, 9:].any()
+                for j in range(tw):
+                    out[img, y, x0 + j] = sum(p[j + dx, dx] for dx in range(9))
+                    hits[img, y, x0 + j] += 1
+    return out, hits
+
+
+@pytest.mark.parametrize("n,h,w,blocks", [(2, 5, 133, 7), (3, 4, 21, 5)])
+def test_c_plan_row_gemm_and_antidiagonal_sums_give_the_reference(rng, n, h, w, blocks):
+    """On ragged shapes (two strips of 67 columns at W = 133; shares that
+    start inside an image), every output is written once and the plan gives
+    conv9_dx_c0_reference, to 1e-4 of max|ref| (f32, summation order)."""
+    _, g, kernel, _ = _case(rng, n=n, h=h, w=w)
+    got, hits = _c_plan(g, _oihw(kernel).numpy(), blocks)
+    assert (hits == 1).all()
+    want = head_bwd.conv9_dx_c0_reference(_nchw(g), _oihw(kernel))[:, 0]
+    _close(torch.from_numpy(got), want.numpy())
+
+
+def test_c_plan_gives_the_pallas_kernel(rng):
+    """The same plan against the JAX conv9_dx_c0 (interpret mode) at 2 x 32 x 64, 1e-4 of max|ref|."""
+    _, g, kernel, _ = _case(rng)
+    want = np.asarray(jax_conv9_dx_c0(jnp.asarray(g), jnp.asarray(kernel)))[..., 0]
+    got, _ = _c_plan(g, _oihw(kernel).numpy(), blocks=3)
+    _close(torch.from_numpy(got), want)
+
+
+def test_c_packed_wrev_is_the_mma_b_fragment_order(rng):
+    """pack_wrev is B = Wrev (B[k][n] = W[c, 0, 8 - dy, 8 - n] at k = 64 dy +
+    c, zero for n >= 9) rounded to bf16 in mma.m16n8k16's B-fragment order
+    (PTX ISA, m16n8k16 fragments): lane l (g = l // 4, t = l % 4) of k-step s
+    holds, low half first, {B[16s + 2t][g], B[16s + 2t + 1][g]} (word 0),
+    {B[16s + 2t + 8][g], B[16s + 2t + 9][g]} (word 1), and words 2, 3 the
+    same for n = 8 + g: one 16-byte vector per lane and k-step."""
+    weight = torch.from_numpy(rng.normal(size=(64, 3, 9, 9)).astype(np.float32))
+    packed = head_bwd.pack_wrev(weight)
+    assert packed.dtype == torch.bfloat16 and packed.numel() == 36 * 32 * 8
+    got = packed.float().numpy().reshape(36, 32, 4, 2)
+    wb = weight.to(torch.bfloat16).float().numpy()
+
+    def b_elem(k, n):
+        dy, c = divmod(k, 64)
+        return wb[c, 0, 8 - dy, 8 - n] if n < 9 else 0.0
+
+    for s in range(36):
+        for lane in range(32):
+            g_, t = divmod(lane, 4)
+            for word in range(4):
+                for half in range(2):
+                    n = g_ + 8 * (word // 2)
+                    k = 16 * s + 2 * t + 8 * (word % 2) + half
+                    assert got[s, lane, word, half] == b_elem(k, n)
+
+
+def test_c_shared_memory_fits_one_block():
+    """Kernel C's bf16 budget (csrc/conv9_dx_c0.cu kSmemB): a ring of 12 row
+    slots (10 rows a step reads + 2 landing) of 136 pixels x 64 channels x 2
+    bytes, and two steps' P strips of 2 rows x 136 columns x 9 f32."""
+    ring = (8 + 2 + 2) * (128 + 8) * 64 * 2
+    strips = 2 * 2 * (128 + 8) * 9 * 4
+    assert ring + strips == 228480 <= 232448
+    assert -(-(128 + 8) // 16) * 32 == 288  # one 16-column M-tile per warp: 9 warps
+
+
 def test_wrapper_counts_no_launch_on_cpu_and_refuses_other_devices(rng):
     _, g, kernel, _ = _case(rng, n=1, h=5, w=6)
     head_bwd.conv9_dx_c0.launches = 0
