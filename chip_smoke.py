@@ -3,8 +3,9 @@
 """Drive the PyTorch/H100 port's main paths on one card and check them.
 
 Three paths of ``climsr_tpu_torch`` at the flagship width (nf=64, nb=11,
-gc=16, one output channel, bf16), and the entry points of the three kernels
-that no model path runs:
+gc=16, one output channel, bf16), pre-training and inference at the
+reference defaults (``GeneratorConfig``: nf=64, nb=23, gc=32), and the entry
+points of the three kernels that no model path runs:
 
 - inference: the ESRGAN tiled whole-globe sweep, CRU-TS months of 360x720 LR
   cut into 128-px tiles with 8-px overlap, 16 tiles per generator call,
@@ -23,24 +24,30 @@ that no model path runs:
   to conv5_4 on seeded weights), Adam for G and D -> ``make_gan_step`` at
   batch 192, then ``make_gan_val_losses``. Each step runs B1 and B2 33 times
   each and C once; the val-loss call runs A 33 times;
+- pre-training at the reference defaults: the same entry points at nf=64,
+  nb=23, gc=32, batch 192. Each step runs B1 and B2 69 times each (the bf16
+  chain at 8 x 16 tiles) and C once;
 - kernel D (``fused_rdb_nhwc``, the NHWC entry to kernel A), kernel E
   (``fused_hr_tail``, ``csrc/hr_tail.cu``) and kernel F (``dc0``, two
-  variants, ``csrc/dc0.cu``, through the probe
-  ``climsr_tpu_torch.scripts.bench_head_bwd_probe``). No model path runs
-  them (as in the JAX package); each is driven through its own entry point.
+  variants, which launches kernel C, ``csrc/conv9_dx_c0.cu``, through the
+  probe ``climsr_tpu_torch.scripts.bench_head_bwd_probe``). No model path
+  runs them (as in the JAX package); each is driven through its own entry
+  point.
 
 Phases (each raises on failure; nothing is caught):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for the comparisons,
-2. build: the five kernel libraries from ``climsr_tpu_torch/csrc``, one
+2. build: the four kernel libraries from ``climsr_tpu_torch/csrc``, one
    ``nvcc`` each, started together; ptxas registers and spills,
 3. kernel A against its plain version at the inference shape (16 x 64 x
    128 x 128) and a ragged one (2 x 64 x 45 x 91), with and without the
-   folded residual, in bf16 and f32; times (CUDA events, medians) beside
-   the bound,
-4. the full-width generator (seeded weights) on 16 tiles of 32x32 through the
-   kernel and through the plain RDB, in bf16 and f32; 33 launches per forward,
+   folded residual, in bf16 and f32, at gc=16 and gc=32 (and gc=48 on the
+   ragged shape); times (CUDA events, medians) beside the bound at gc=16
+   and gc=32,
+4. the generator (seeded weights) on 16 tiles of 32x32 through the kernel
+   and through the plain RDB, in bf16 and f32, at the flagship widths (33
+   launches per forward) and at the reference defaults (69),
 5. end to end: a synthetic globe (8 months of 360x720 NetCDF, 1440x2880
    elevation and land mask at 29% land) through ``CRUTSInferenceDataset`` and
    ``inference_on_full_images``; 8 GeoTIFFs, launches = 33 x 14 generator
@@ -49,9 +56,11 @@ Phases (each raises on failure; nothing is caught):
 6. kernels B1 and B2 against their plain versions at the training shape
    (192 x 64 x 32 x 32) and a ragged one (3 x 64 x 29 x 45), bf16 and f32,
    with scales (0.2, 1) and, with x0, (0.04, 0.2): out, feat, dx, every dW
-   and db; at the training shape B2's dX pass, dW pass, reduction and
-   wrapper ops each timed on the device, and two B2 calls on the same inputs
-   bitwise equal; kernel C at 192 x 64 x 128 x 128 and 2 x 64 x 45 x 91;
+   and db, at gc=16 and gc=32 (and gc=48 on the ragged shape); at the
+   training shape (gc=16 and gc=32) the times beside the bounds, B2's dX
+   pass, dW pass, reduction and wrapper ops each timed on the device, and
+   two B2 calls on the same inputs bitwise equal; kernel C at 192 x 64 x
+   128 x 128 and 2 x 64 x 45 x 91;
    times beside the bounds (and C's library conv), two C calls bitwise equal,
 7. pre-training at full width: 6 steps through the kernels and 6 through
    the plain versions from the same seeded init and batch; losses and
@@ -60,21 +69,27 @@ Phases (each raises on failure; nothing is caught):
    kernel inside the fusion head's backward, ``FusionConv1``: kernel C and the
    wrapper's own ops); then one eval step (33 A launches, 16 finite metrics),
 8. kernels D, E and F against their plain versions, bf16 and f32: D at
-   192 x 64 x 32 x 32 and 3 x 64 x 29 x 45, E and F at 192 x 64 x 128 x 128
-   and 2 x 64 x 45 x 91; times beside the bounds; E also at the sweep's HR
+   192 x 64 x 32 x 32 and 3 x 64 x 29 x 45 (also at gc=32), E and F (C's
+   kernel) at 192 x 64 x 128 x 128 and 2 x 64 x 45 x 91; times beside the
+   bounds; E also at the sweep's HR
    head, 16 x 64 x 512 x 512 bf16, timed against its plain version (cuDNN's
    two convs) and not listed; two E calls bitwise equal. Then D's and E's own
    paths, counted: the flagship generator's first RRDB through D (three
    launches) and its HR tail through E (one launch), each against the
    generator's own modules,
-9. the probe (``bench_head_bwd_probe.probe``): F1 and F2 checked and timed
-   against kernel C, the plain version and the library's transposed conv,
+9. the probe (``bench_head_bwd_probe.probe``): F1 and F2 (C's kernel through
+   F's entry) checked and timed against kernel C, the plain version and the
+   library's transposed conv; F launches no C count,
 10. the GAN fine-tune at full width: 4 steps through the kernels and 4
    through the plain versions from the same seeded init and batch; loss_G
    and loss_D compared step by step; exactly 33 B1 + 33 B2 + 1 C launches
    per step and no A, D, E or F; ms/step, samples/s, a profiled step; then
    one val-loss call (33 A launches, finite losses),
-11. one JSON line with every kernel, the card line, then the device line as
+11. pre-training at the reference defaults (nf=64, nb=23, gc=32): 4 steps
+   through the kernels and 4 through the plain versions from the same seeded
+   init and batch, compared as in phase 7; exactly 69 B1 + 69 B2 + 1 C
+   launches per step and no A; ms/step with the card line,
+12. one JSON line with every kernel, the card line, then the device line as
    the last line.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA card). Exits non-zero, printing no
@@ -139,8 +154,10 @@ GAN_LOSS_TOL = 2e-2
 GAN_STEPS = 4
 
 NF, NB, GC = 64, 11, 16
+NB_REF, GC_REF = 23, 32  # GeneratorConfig's defaults (with nf=64): the reference's own widths
 TRAIN_N, TRAIN_LR = 192, 32
 STEPS = 6
+REF_STEPS = 4  # phase 11's steps through the kernels and through the plain versions
 
 
 def card_line() -> str:
@@ -206,14 +223,15 @@ def rdb_bound_ms(x: torch.Tensor, with_x0: bool, nf=NF, gc=GC):
     return bound(2.0 * rdb_macs_per_px(nf, gc) * n * h * w, moved, x.dtype)
 
 
-def phase_kernel(device) -> dict:
-    """Kernel against rdb_reference; returns the main path's numbers."""
+def phase_kernel(device, gc=GC, shapes=((16, 128, 128), (2, 45, 91))) -> dict:
+    """Kernel A at growth width ``gc`` against rdb_reference; returns the
+    numbers at the inference shape (16 x 64 x 128 x 128, bf16, no x0), if in ``shapes``."""
     from climsr_tpu_torch.ops.rdb import fused_rdb, pack_rdb_weights, rdb_reference
 
     result = {}
-    for n, h, w in ((16, 128, 128), (2, 45, 91)):
+    for n, h, w in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            x, x0, weights = rdb_inputs(n, h, w, dtype, device)
+            x, x0, weights = rdb_inputs(n, h, w, dtype, device, gc=gc)
             packed = pack_rdb_weights(weights, dtype)
             for res in (None, x0):
                 got = fused_rdb(x, weights, res, packed)
@@ -221,14 +239,14 @@ def phase_kernel(device) -> dict:
                 ref = rdb_reference(x, weights, res)
                 abs_err = (got.float() - ref.float()).abs().max().item()
                 rel = abs_err / ref.float().abs().max().item()
-                tag = f"fused_rdb {n}x{NF}x{h}x{w} {str(dtype)[6:]} x0={res is not None}"
+                tag = f"fused_rdb {n}x{NF}x{h}x{w} gc={gc} {str(dtype)[6:]} x0={res is not None}"
                 print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {KERNEL_TOL[dtype]:g})")
                 if not (rel <= KERNEL_TOL[dtype]):
                     raise AssertionError(f"{tag}: kernel disagrees with rdb_reference ({rel:.3e})")
                 if (n, h, w, dtype) == (16, 128, 128, torch.bfloat16):
                     ms = cuda_ms(lambda: fused_rdb(x, weights, res, packed))
                     plain = cuda_ms(lambda: rdb_reference(x, weights, res))
-                    bound, bound_by = rdb_bound_ms(x, res is not None)
+                    bound, bound_by = rdb_bound_ms(x, res is not None, gc=gc)
                     print(f"# {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                           f"bound {bound:.4f} ms ({bound_by})")
                     if res is None:
@@ -443,23 +461,24 @@ def assert_bitwise_repeatable(tag: str, run) -> None:
         raise AssertionError(f"{tag} is not deterministic: two calls differ")
 
 
-def phase_train_kernels(device) -> dict:
-    """Kernels B1 and B2 against rdb_fwd_save_reference / rdb_bwd_reference."""
+def phase_train_kernels(device, gc=GC, shapes=((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45))) -> dict:
+    """Kernels B1 and B2 at growth width ``gc`` against rdb_fwd_save_reference /
+    rdb_bwd_reference; times, bounds and B2's repeatability at the training shape."""
     from climsr_tpu_torch.ops.rdb import (
         fused_rdb_bwd, fused_rdb_fwd_save, pack_rdb_weights, rdb_bwd_reference, rdb_fwd_save_reference,
     )
 
     result = {}
-    for n, h, w in ((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45)):
+    for n, h, w in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             tol = TRAIN_KERNEL_TOL[dtype]
-            x, x0, weights = rdb_inputs(n, h, w, dtype, device)
+            x, x0, weights = rdb_inputs(n, h, w, dtype, device, gc=gc)
             packed = pack_rdb_weights(weights, dtype)
             gen = torch.Generator(device="cpu").manual_seed(2)
             g = (0.01 * torch.randn(n, NF, h, w, generator=gen)).to(device, dtype).contiguous(
                 memory_format=torch.channels_last)  # an upstream gradient's scale
             for res, (gy, gx) in ((None, (0.2, 1.0)), (x0, (0.04, 0.2))):
-                tag = f"{n}x{NF}x{h}x{w} {str(dtype)[6:]} x0={res is not None}"
+                tag = f"{n}x{NF}x{h}x{w} gc={gc} {str(dtype)[6:]} x0={res is not None}"
                 out, feat = fused_rdb_fwd_save(x, weights, res, packed)
                 torch.cuda.synchronize()
                 ref_out, ref_feat = rdb_fwd_save_reference(x, weights, res)
@@ -478,12 +497,13 @@ def phase_train_kernels(device) -> dict:
                     raise AssertionError(f"B1/B2 {tag}: kernels disagree with the plain versions ({worst:.3e})")
                 if (n, dtype, res) == (TRAIN_N, torch.bfloat16, None):
                     px = n * h * w
-                    total = NF + 4 * GC
-                    wbytes = 4 * rdb_macs_per_px() + 4 * (4 * GC + NF)
+                    total = NF + 4 * gc
+                    macs = rdb_macs_per_px(gc=gc)
+                    wbytes = 4 * macs + 4 * (4 * gc + NF)
                     fwd_bytes = px * 2 * (2 * NF + total) + wbytes
                     bwd_bytes = px * 2 * (total + 2 * NF) + wbytes
-                    b1_bound = bound(2.0 * rdb_macs_per_px() * px, fwd_bytes, dtype)
-                    b2_bound = bound(4.0 * rdb_macs_per_px() * px, bwd_bytes, dtype)
+                    b1_bound = bound(2.0 * macs * px, fwd_bytes, dtype)
+                    b2_bound = bound(4.0 * macs * px, bwd_bytes, dtype)
                     result["fused_rdb_fwd_save"] = dict(
                         max_abs_err=max(checks["out"][0], checks["feat"][0]),
                         ms=cuda_ms(lambda: fused_rdb_fwd_save(x, weights, None, packed)),
@@ -597,8 +617,9 @@ def train_batch(n=TRAIN_N, lr=TRAIN_LR, scale=4) -> dict:
             "min": torch.full((n,), -30.0), "max": torch.full((n,), 40.0), "original_data": 35.0 * hr + 5.0}
 
 
-def phase_pretrain(device) -> dict:
-    """Full-width pre-training through the kernels and through the plain versions."""
+def phase_pretrain(device, nb=NB, gc=GC, steps=STEPS) -> dict:
+    """Pre-training at nf=64 and (nb, gc) through the kernels and through the
+    plain versions, ``steps`` steps each, then an eval step."""
     from climsr_tpu_torch.config.schemas import OptimizerConfig, SchedulerConfig
     from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0
     from climsr_tpu_torch.ops.rdb import fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save
@@ -610,21 +631,22 @@ def phase_pretrain(device) -> dict:
 
     batch = {k: v.to(device) for k, v in train_batch().items()}
     lr = 1e-4
-    sched = SchedulerConfig(name="one_cycle_schedule", max_lr=lr, num_training_steps=STEPS)
+    sched = SchedulerConfig(name="one_cycle_schedule", max_lr=lr, num_training_steps=steps)
+    widths = f"nf={NF} nb={nb} gc={gc}"
     counters = (fused_rdb_fwd_save, fused_rdb_bwd, conv9_dx_c0, fused_rdb)
 
     def run(tag: str):
         model = create_generator("esrgan", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
-                                 device=device, train=True, in_channels=3, out_channels=1, nf=NF, nb=NB, gc=GC)
+                                 device=device, train=True, in_channels=3, out_channels=1, nf=NF, nb=nb, gc=gc)
         tx = build_optimizer(OptimizerConfig(name="adamw", lr=lr, weight_decay=1e-4),
-                             resolve_schedule(sched, lr, STEPS), b1_schedule=resolve_momentum_schedule(sched, STEPS),
+                             resolve_schedule(sched, lr, steps), b1_schedule=resolve_momentum_schedule(sched, steps),
                              device=device)
         state = TrainState.create(model, tx)
         step = make_pretrain_step(model, "esrgan", compute_dtype=torch.bfloat16, device=device)
         losses, norms, times = [], [], []
         for c in counters:
             c.launches = 0
-        for _ in range(STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, metrics = step(state, batch)
@@ -633,8 +655,8 @@ def phase_pretrain(device) -> dict:
             times.append(time.perf_counter() - t)
         launches = [c.launches for c in counters]
         ms = 1e3 * statistics.median(times[1:])
-        print(f"# pre-training {tag}: losses {['%.6f' % v for v in losses]}, grad norms "
-              f"{['%.6f' % v for v in norms]}, {ms:.3f} ms/step (median of steps 2-{STEPS}), "
+        print(f"# pre-training {widths} {tag}: losses {['%.6f' % v for v in losses]}, grad norms "
+              f"{['%.6f' % v for v in norms]}, {ms:.3f} ms/step (median of steps 2-{steps}), "
               f"{TRAIN_N / ms * 1e3:.2f} samples/s; launches B1 {launches[0]}, B2 {launches[1]}, "
               f"C {launches[2]}, A {launches[3]}")
         if not all(np.isfinite(losses + norms)):
@@ -642,61 +664,62 @@ def phase_pretrain(device) -> dict:
         return model, state, step, losses, norms, ms, launches
 
     model, state, step, losses, norms, ms, launches = run("through the kernels")
-    expected = [3 * NB * STEPS, 3 * NB * STEPS, STEPS, 0]
+    expected = [3 * nb * steps, 3 * nb * steps, steps, 0]
     if launches != expected:
-        raise AssertionError(f"pre-training: expected launches B1, B2, C, A = {expected}, counted {launches}")
+        raise AssertionError(f"pre-training {widths}: expected launches B1, B2, C, A = {expected}, "
+                             f"counted {launches}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"pre-training: the loss did not decrease ({losses[0]} -> {losses[-1]})")
+        raise AssertionError(f"pre-training {widths}: the loss did not decrease ({losses[0]} -> {losses[-1]})")
     # the fusion head's backward: kernel C and the wrapper's other device ops
-    device_breakdown(lambda: step(state, batch), what="pre-training step", under="FusionConv1Backward")
+    device_breakdown(lambda: step(state, batch), what=f"pre-training step {widths}", under="FusionConv1Backward")
     with plain_training():
         *_, plain_losses, plain_norms, plain_ms, _ = run("through the plain versions")
     loss_err = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
     norm_err = abs(norms[0] - plain_norms[0]) / abs(plain_norms[0])
     traj_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
-    print(f"# pre-training kernels vs plain: step-1 loss {loss_err:.2e} (tol {STEP_LOSS_TOL:g}), "
+    print(f"# pre-training {widths} kernels vs plain: step-1 loss {loss_err:.2e} (tol {STEP_LOSS_TOL:g}), "
           f"step-1 grad norm {norm_err:.2e} (tol {STEP_GRAD_NORM_TOL:g}), loss trajectory {traj_err:.2e} "
           f"(tol {TRAJECTORY_TOL:g})")
     if not (loss_err <= STEP_LOSS_TOL and norm_err <= STEP_GRAD_NORM_TOL and traj_err <= TRAJECTORY_TOL):
-        raise AssertionError("pre-training through the kernels disagrees with the plain versions")
+        raise AssertionError(f"pre-training {widths} through the kernels disagrees with the plain versions")
 
     eval_step = make_eval_step(model, "esrgan", compute_dtype=torch.bfloat16, device=device)
     fused_rdb.launches = 0
     metrics = eval_step(batch)
     a_launches = fused_rdb.launches
     bad = sorted(k for k, v in metrics.items() if not torch.isfinite(v).item())
-    print(f"# eval step: {len(metrics) - 2} metrics + 2 losses, {a_launches} A launches; "
+    print(f"# eval step {widths}: {len(metrics) - 2} metrics + 2 losses, {a_launches} A launches; "
           + ", ".join(f"{k} {v.item():.4f}" for k, v in sorted(metrics.items())))
     if len(metrics) != 18 or bad:
         raise AssertionError(f"eval step: expected 16 finite metrics and 2 losses, non-finite {bad}")
-    if a_launches != 3 * NB:
-        raise AssertionError(f"eval step: expected {3 * NB} A launches, counted {a_launches}")
+    if a_launches != 3 * nb:
+        raise AssertionError(f"eval step: expected {3 * nb} A launches, counted {a_launches}")
     return dict(launches=dict(zip(("fused_rdb_fwd_save", "fused_rdb_bwd", "conv9_dx_c0"), launches)),
                 ms=ms, plain_ms=plain_ms)
 
 
-def phase_rdb_nhwc(device) -> dict:
+def phase_rdb_nhwc(device, gc=GC) -> dict:
     """Kernel D's entry, ``fused_rdb_nhwc`` (NHWC in and out, HWIO weights),
-    against rdb_reference. Its timed call packs the weights, as the JAX
-    ``fused_rdb`` takes raw ones."""
+    at growth width ``gc`` against rdb_reference. Its timed call packs the
+    weights, as the JAX ``fused_rdb`` takes raw ones."""
     from climsr_tpu_torch.ops.rdb import fused_rdb_nhwc, rdb_reference
 
     result = {}
     for n, h, w in ((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45)):
         for dtype in (torch.float32, torch.bfloat16):
-            x, _, weights = rdb_inputs(n, h, w, dtype, device)
+            x, _, weights = rdb_inputs(n, h, w, dtype, device, gc=gc)
             xn = x.permute(0, 2, 3, 1)  # the NHWC view of channels_last storage
             hwio = [t for wt, bs in weights for t in (wt.permute(2, 3, 1, 0), bs)]
             got = fused_rdb_nhwc(xn, *hwio)
             torch.cuda.synchronize()
             ref = rdb_reference(x, weights).permute(0, 2, 3, 1)
             abs_err, rel = rel_err(got, ref)
-            tag = f"fused_rdb_nhwc {n}x{h}x{w}x{NF} {str(dtype)[6:]}"
+            tag = f"fused_rdb_nhwc {n}x{h}x{w}x{NF} gc={gc} {str(dtype)[6:]}"
             print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {TAIL_TOL[dtype]:g})")
             if got.shape != xn.shape or not (rel <= TAIL_TOL[dtype]):
                 raise AssertionError(f"{tag}: kernel disagrees with rdb_reference ({rel:.3e})")
             if (n, dtype) == (TRAIN_N, torch.bfloat16):
-                b = rdb_bound_ms(x, False)
+                b = rdb_bound_ms(x, False, gc=gc)
                 result = dict(max_abs_err=abs_err, ms=cuda_ms(lambda: fused_rdb_nhwc(xn, *hwio)),
                               plain_ms=cuda_ms(lambda: rdb_reference(x, weights)),
                               bound_ms=b[0], bound_by=b[1], library_ms=None)
@@ -753,9 +776,11 @@ def phase_hr_tail(device) -> dict:
 
 
 def phase_dc0(device) -> None:
-    """Kernel F, both variants, against dc0_reference (the probe times them)."""
-    from climsr_tpu_torch.ops.head_bwd import dc0, dc0_reference
+    """Kernel F, both variants, against dc0_reference (the probe times them);
+    each call launches kernel C, counted as F's and not as C's."""
+    from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, dc0, dc0_reference
 
+    before = dc0.launches, conv9_dx_c0.launches
     gen = torch.Generator(device="cpu").manual_seed(0)
     for n, h, w in ((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -770,6 +795,10 @@ def phase_dc0(device) -> None:
                 print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {HEAD_TOL[dtype]:g})")
                 if got.shape != (n, 1, h, w) or not (rel <= HEAD_TOL[dtype]):
                     raise AssertionError(f"{tag}: kernel disagrees with dc0_reference ({rel:.3e})")
+    counted = dc0.launches - before[0], conv9_dx_c0.launches - before[1]
+    print(f"# dc0: {counted[0]} F launches (kernel C's kernel), {counted[1]} counted as C")
+    if counted != (8, 0):
+        raise AssertionError(f"dc0: expected 8 F launches and 0 C launches, counted {counted}")
 
 
 def path_rdb_nhwc_and_hr_tail(device) -> dict:
@@ -947,19 +976,21 @@ def main() -> int:
     # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
     libs = cuda_lib.build({"climsr_rdb": rdb._SOURCES, "climsr_rdb_bwd": rdb._BWD_SOURCES,
-                           "climsr_head_bwd": head_bwd._SOURCES, "climsr_hr_tail": head._SOURCES,
-                           "climsr_dc0": head_bwd._DC0_SOURCES})
+                           "climsr_head_bwd": head_bwd._SOURCES, "climsr_hr_tail": head._SOURCES})
     print(f"# built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.3f} s")
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"#   ptxas {name}: {line.strip()}")
 
-    # 3. kernel against its plain version
+    # 3. kernel A against its plain version, at the flagship and the reference-default growth widths
     kernel = phase_kernel(device)
+    kernel_ref = phase_kernel(device, gc=GC_REF)
+    phase_kernel(device, gc=48, shapes=((2, 45, 91),))
 
-    # 4. the full-width generator
+    # 4. the generator at the flagship widths and at the reference defaults
     phase_generator(device)
+    phase_generator(device, nb=NB_REF, gc=GC_REF)
 
     # 5. end to end
     globe = phase_globe(device)
@@ -972,6 +1003,8 @@ def main() -> int:
 
     # 6. the training kernels against their plain versions
     train_kernels = phase_train_kernels(device)
+    train_kernels_ref = phase_train_kernels(device, gc=GC_REF)
+    phase_train_kernels(device, gc=48, shapes=((3, 29, 45),))
     train_kernels["conv9_dx_c0"] = phase_head_kernel(device)
 
     # 7. pre-training and an eval step at full width
@@ -982,6 +1015,7 @@ def main() -> int:
 
     # 8. kernels D, E, F against their plain versions; D's and E's own paths
     rdb_nhwc = phase_rdb_nhwc(device)
+    rdb_nhwc_ref = phase_rdb_nhwc(device, gc=GC_REF)
     hr_tail = phase_hr_tail(device)
     phase_dc0(device)
     own = path_rdb_nhwc_and_hr_tail(device)
@@ -995,7 +1029,18 @@ def main() -> int:
           f"through the kernels, {gan['plain_ms']:.3f} ms/step ({TRAIN_N / gan['plain_ms'] * 1e3:.2f} samples/s) "
           f"through the plain versions ({card})")
 
-    # 11. results
+    # 11. pre-training at the reference defaults (nf=64, nb=23, gc=32)
+    pre_ref = phase_pretrain(device, nb=NB_REF, gc=GC_REF, steps=REF_STEPS)
+    print(f"# pre-training step nf={NF} nb={NB_REF} gc={GC_REF}, batch {TRAIN_N}: {pre_ref['ms']:.3f} ms/step "
+          f"({TRAIN_N / pre_ref['ms'] * 1e3:.2f} samples/s) through the kernels, {pre_ref['plain_ms']:.3f} ms/step "
+          f"({TRAIN_N / pre_ref['plain_ms'] * 1e3:.2f} samples/s) through the plain versions ({card})")
+    # the kernels at gc=32, beside gc=16's in the JSON line below
+    for name, r in (("fused_rdb", kernel_ref), ("fused_rdb_fwd_save", train_kernels_ref["fused_rdb_fwd_save"]),
+                    ("fused_rdb_bwd", train_kernels_ref["fused_rdb_bwd"]), ("fused_rdb_nhwc", rdb_nhwc_ref)):
+        print(f"# {name} at gc={GC_REF}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e} ({card})")
+
+    # 12. results
     kernels = [dict(name="fused_rdb", route="cuda", source="climsr_tpu_torch/csrc/rdb_fwd.cu",
                     replaces="climsr_tpu/ops/pallas/rdb.py:190", launches=globe["launches"], library_ms=None,
                     **kernel)]
@@ -1011,8 +1056,8 @@ def main() -> int:
                         replaces="climsr_tpu/ops/pallas/rdb.py:83", launches=own["fused_rdb_nhwc"], **rdb_nhwc))
     kernels.append(dict(name="fused_hr_tail", route="cuda", source="climsr_tpu_torch/csrc/hr_tail.cu",
                         replaces="climsr_tpu/ops/pallas/head.py:58", launches=own["fused_hr_tail"], **hr_tail))
-    for name, line in (("dc0_flat", 48), ("dc0_dyfac", 68)):
-        kernels.append(dict(name=name, route="cuda", source="climsr_tpu_torch/csrc/dc0.cu",
+    for name, line in (("dc0_flat", 48), ("dc0_dyfac", 68)):  # F1, F2: kernel C's source through F's entry
+        kernels.append(dict(name=name, route="cuda", source="climsr_tpu_torch/csrc/conv9_dx_c0.cu",
                             replaces=f"scripts/bench_head_bwd_probe.py:{line}", **probe[name]))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -34,25 +34,29 @@
 //    gives dx. The tile's centre of B goes to device memory as `z`, the input
 //    of part 2. In bf16 this is the forward's `conv_chain` (rdb_common.cuh):
 //    weights through a two-slot shared-memory ring, mma.sync for the growth
-//    steps and wgmma for the 64-channel last conv, 220,736 bytes of shared
-//    memory and one block per SM, as kernel A.
-// 2. dW (`rdb_wgrad_*_kernel`). bf16: one block per 16-channel group of z
-//    (8 at nf=64, gc=16: dz_5 in four groups, then dz_4 .. dz_1, each the
-//    output gradient of one conv) and per split of the pixel tiles; the job
-//    and split tables come from the wrapper (`wgrad_plan`), 33 splits at the
-//    training shape so 264 blocks fill the 132 SMs twice. For each 8 x 16
-//    pixel tile the block stages its 16 dz channels and feat's first cin
-//    channels with a 1-pixel halo once (cp.async, zero-filled outside the
+//    steps and wgmma for the 64-channel last conv, the tile and shared
+//    memory of kernel A at the same widths, one block per SM.
+// 2. dW (`rdb_wgrad_*_kernel`). bf16: one block per job and split of the
+//    pixel tiles. A job is a 16-channel group of z (dz_5 in four groups at
+//    nf = 64, then dz_4 .. dz_1, each the output gradient of one conv) and
+//    at most 128 of that conv's input channels: 8 jobs at gc = 16; 18 at
+//    gc = 32, where conv5's 192 inputs and conv4's 160 are cut in two halves
+//    each. The job and split tables come from the wrapper (`wgrad_plan`):
+//    33 splits at the training shape and gc = 16, so 264 blocks fill the 132
+//    SMs twice. For each 8 x 16 pixel tile the block stages its 16 dz
+//    channels and its job's feat channels with a 1-pixel halo once
+//    (cp.async, zero-filled outside the
 //    image, double-buffered: the next tile's copies run under this tile's
 //    products, 2 x 55,104 bytes, two blocks per SM), and all nine taps are
 //    address offsets into that stage: a warp owns (16 input channels, tap)
 //    pairs, and one ldmatrix.trans A fragment of dz^T feeds up to 9 of them,
 //    mma.sync m16n8k16 with f32 sums. So feat is staged 8 times per call,
 //    not once per (conv, 16 outputs, tap) as in the first version (~61
-//    times). Each block writes its rows of dW, contiguous in OIHW, through
-//    shared memory 16 bytes at a time, and the growth db from a fixed-order
+//    times). Each block writes its slice of dW (16 runs of 9 x its input
+//    channels in OIHW) through shared memory 16 bytes at a time, and the
+//    job that starts at input channel 0 the growth db from a fixed-order
 //    sum, as its split's f32 partial. f32: one block per (conv, 16 outputs,
-//    tap) and split, CUDA-core FMA.
+//    tap) and split, CUDA-core FMA, in passes of 2,048 outputs.
 // 3. A reduction (`rdb_wgrad_reduce_kernel`) sums the partials in a fixed
 //    order. No atomics anywhere: two calls on the same inputs give the same
 //    bits.
@@ -113,6 +117,7 @@ struct DxStore {
   }
 };
 
+template <int NQ>  // gc = 16 * NQ: one kernel per growth width, as kernel A
 __global__ void __launch_bounds__(kThreads, 1)
     rdb_bwd_dx_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ feat, bf16* __restrict__ dx,
                            bf16* __restrict__ z, const bf16* __restrict__ w, int H, int W, int nf, int gc, int th,
@@ -144,7 +149,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // steps 0..3 give dz_4, dz_3, dz_2, dz_1; the last conv gives dx
   const SlopeStore growth{buf, feat, img, cp, pw, nf, gc, total, oy, ox, H, W};
   const DxStore last{g, dx, img, oy, ox, H, W, nf, gxs};
-  conv_chain(buf, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
+  conv_chain<NQ>(buf, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
     const int tv = total / 8;  // the tile's B to device memory, for part 2
     for (int i = threadIdx.x; i < th * tw * tv; i += kThreads) {
       const int v = i % tv, pix = i / tv, sy = pix / tw, sx = pix % tw;
@@ -305,12 +310,14 @@ __device__ __forceinline__ void sum_db(float& acc, const float* zs, int zs_strid
 // products per k-step. Tiles stream
 // through two stages with cp.async, the next tile's copies in flight while
 // the current tile's products run. 2 blocks per SM.
-constexpr int kWPairs = 9;            // (input tile, tap) pairs per warp: cin <= 128
+constexpr int kWPairs = 9;            // (input tile, tap) pairs per warp: cic <= 128
+constexpr int kMaxCic = 16 * kWPairs * kWarps / 9;  // 128 input channels per job
+constexpr int kJobInts = 7;           // ints per row of the job table
 constexpr int kZStride = 16 + kPad;   // staged dz: 48-byte rows, ldmatrix rows on distinct banks
 
-// one stage: 128 pixels x 16 dz channels, 10 x 18 pixels x cin feat channels
-__host__ __device__ constexpr int wgrad_stage_elems(int cin) {
-  return kTH * kTW * kZStride + kFH * kFW * (cin + kPad);
+// one stage: 128 pixels x 16 dz channels, 10 x 18 pixels x cic feat channels
+__host__ __device__ constexpr int wgrad_stage_elems(int cic) {
+  return kTH * kTW * kZStride + kFH * kFW * (cic + kPad);
 }
 
 // One staged tile's products for a warp that holds NP (input tile, tap)
@@ -344,14 +351,15 @@ __global__ void __launch_bounds__(kThreads, 2)
                           int njobs, int H, int W, int nf, int gc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int job = blockIdx.x % njobs, split = blockIdx.x / njobs;
-  // job row: z channel, conv (0..4), first output channel, cin, the conv's first weight in [dW_1 .. dW_5]
-  const int zc = jobs[5 * job], j = jobs[5 * job + 1], co0 = jobs[5 * job + 2], cin = jobs[5 * job + 3];
-  const int woff = jobs[5 * job + 4];
-  const int total = nf + 4 * gc, fstride = cin + kPad, npairs = 9 * (cin / 16);
+  // job row: z channel, conv (0..4), first output channel, cin, the conv's first weight in
+  // [dW_1 .. dW_5], and the block's input channels ci0 .. ci0 + cic - 1 (cic <= 128)
+  const int* row = jobs + kJobInts * job;
+  const int zc = row[0], j = row[1], co0 = row[2], cin = row[3], woff = row[4], ci0 = row[5], cic = row[6];
+  const int total = nf + 4 * gc, fstride = cic + kPad, npairs = 9 * (cic / 16);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mi = lane >> 3, r = lane & 7;
   bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-  const int stage_elems = wgrad_stage_elems(cin);
+  const int stage_elems = wgrad_stage_elems(cic);
 
   // this lane's ldmatrix row in the staged feat for each of its pairs (tap ty, tx; input tile ct)
   int poff[kWPairs];
@@ -362,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   const int tiles_y = (H + kTH - 1) / kTH, tiles_x = (W + kTW - 1) / kTW;
-  // tile t's dz (16 channels of 128 pixels) and feat (cin channels of 10 x 18 pixels), zero outside the image
+  // tile t's dz (16 channels of 128 pixels) and feat (cic channels of 10 x 18 pixels), zero outside the image
   auto stage = [&](int t, bf16* zs) {
     const size_t img = (size_t)(t / (tiles_y * tiles_x)) * H * W;
     const int ty0 = ((t / tiles_x) % tiles_y) * kTH, tx0 = (t % tiles_x) * kTW;
@@ -373,18 +381,18 @@ __global__ void __launch_bounds__(kThreads, 2)
                  inside);
     }
     bf16* fs = zs + kTH * kTW * kZStride;
-    const int cv = cin / 8;
+    const int cv = cic / 8;
     for (int i = tid; i < kFH * kFW * cv; i += kThreads) {
       const int v = i % cv, pix = i / cv, gy = ty0 - 1 + pix / kFW, gx = tx0 - 1 + pix % kFW;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      cp_async16(fs + pix * fstride + v * 8, inside ? feat + (img + (size_t)gy * W + gx) * total + v * 8 : feat,
-                 inside);
+      cp_async16(fs + pix * fstride + v * 8,
+                 inside ? feat + (img + (size_t)gy * W + gx) * total + ci0 + v * 8 : feat, inside);
     }
   };
 
   float acc[kWPairs][2][4] = {};
   float db = 0.f;  // growth convs: dz channel tid % 16 over pixels tid / 16 + 16 i
-  const bool growth = j < 4;
+  const bool growth = j < 4 && ci0 == 0;  // one job of each 16 growth outputs sums their db
   const int t0 = bounds[split], t1 = bounds[split + 1];
   if (t0 < t1) stage(t0, stages);
   cp_async_commit();
@@ -398,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (growth)
 #pragma unroll
       for (int p = tid >> 4; p < kTH * kTW; p += kThreads / 16) db += __bfloat162float(zs[p * kZStride + (tid & 15)]);
-    switch ((npairs + kWarps - 1) / kWarps) {  // pairs per warp: 5 .. 9 for cin = 64 .. 128
+    switch ((npairs + kWarps - 1) / kWarps) {  // pairs per warp: 5 .. 9 for cic = 64 .. 128
       case 1: wgrad_products<1>(acc, zs, fs, poff, fstride); break;
       case 2: wgrad_products<2>(acc, zs, fs, poff, fstride); break;
       case 3: wgrad_products<3>(acc, zs, fs, poff, fstride); break;
@@ -411,12 +419,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  // The block's slice of dW_j, rows co0 .. co0 + 15 of its OIHW weight, is
-  // contiguous: lay it out in shared memory, then write it 16 bytes at a time.
+  // The block's slice of dW_j, rows co0 .. co0 + 15 and input channels ci0 ..
+  // ci0 + cic - 1 of its OIHW weight, is 16 contiguous runs of 9 * cic: lay it
+  // out in shared memory, then write it 16 bytes at a time.
   cp_async_wait_all();
   __syncthreads();  // the stages are free
-  float* slice = reinterpret_cast<float*>(smem_raw);  // [16][cin][9]
-  float* dbs = slice + 16 * 9 * cin;                  // [16 pixel groups][16 channels]
+  float* slice = reinterpret_cast<float*>(smem_raw);  // [16][cic][9]
+  float* dbs = slice + 16 * 9 * cic;                  // [16 pixel groups][16 channels]
   const int g = lane >> 2, tq = lane & 3;  // C rows g, g + 8 are output channels, columns 2tq, 2tq + 1 input channels
 #pragma unroll
   for (int i = 0; i < kWPairs; ++i) {
@@ -427,14 +436,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int co = g + 8 * (e >> 1), ci = ct * 16 + nt * 8 + 2 * tq + (e & 1);
-        slice[(co * cin + ci) * 9 + tap] = acc[i][nt][e];
+        slice[(co * cic + ci) * 9 + tap] = acc[i][nt][e];
       }
   }
   if (growth) dbs[tid] = db;
   __syncthreads();
   const size_t wtotal = 9 * (size_t)(4 * gc * nf + 6 * gc * gc + nf * total);
-  float4* out = reinterpret_cast<float4*>(partial + split * wtotal + woff + (size_t)co0 * cin * 9);
-  for (int i = tid; i < 16 * 9 * cin / 4; i += kThreads) out[i] = reinterpret_cast<const float4*>(slice)[i];
+  const int run = 9 * cic / 4;  // float4s of one output channel's run
+  const float4* src = reinterpret_cast<const float4*>(slice);
+  float4* out = reinterpret_cast<float4*>(partial + split * wtotal + woff + ((size_t)co0 * cin + ci0) * 9);
+  for (int i = tid; i < 16 * run; i += kThreads) out[(i / run) * (9 * cin / 4) + i % run] = src[i];
   if (growth && tid < 16) {  // the 16 pixel groups in a fixed order
     float s = 0.f;
     for (int q = 0; q < kThreads / 16; ++q) s += dbs[q * 16 + tid];
@@ -446,47 +457,50 @@ __global__ void __launch_bounds__(kWThreads)
     rdb_wgrad_f32_kernel(const float* __restrict__ z, const float* __restrict__ feat, float* __restrict__ partial,
                          float* __restrict__ db_partial, int n, int H, int W, int nf, int gc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kOut = 16;  // outputs per thread: 16 channels x cin <= 2048 = 16 x 128 threads
+  constexpr int kOut = 16;  // outputs per thread and pass: 16 channels x 128 inputs = 16 x 128 threads
   const Job jb = job_of(blockIdx.x, nf, gc);
   const int total = nf + 4 * gc;
   float* zs = reinterpret_cast<float*>(smem_raw);
   float* fs = zs + kTH * kTW * 16;
   const int ty = jb.tap / 3, tx = jb.tap % 3;
-  const bool with_db = jb.tap == 4 && jb.j < 4 && threadIdx.x < 16;
   const int outs = 16 * jb.cin;
-
-  float acc[kOut] = {};
-  float db = 0.f;
   const int tiles_y = (H + kTH - 1) / kTH, tiles_x = (W + kTW - 1) / kTW;
   const int tiles = n * tiles_y * tiles_x;
-  for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
-    const size_t img = (size_t)(t / (tiles_y * tiles_x)) * H * W;
-    const int ty0 = ((t / tiles_x) % tiles_y) * kTH, tx0 = (t % tiles_x) * kTW;
-    __syncthreads();
-    stage_tile(zs, 16, fs, jb.cin, z, feat, jb, img, ty0, tx0, H, W, total);
-    __syncthreads();
-    if (with_db) sum_db(db, zs, 16);
+  float* out = partial + (size_t)blockIdx.y * (9 * (size_t)(4 * gc * nf + 6 * gc * gc + nf * total)) + jb.woff;
+
+  // outputs e0 .. e0 + kOut * kWThreads - 1 per pass (one pass for cin <= 128), every tile staged in each
+  for (int e0 = 0; e0 < outs; e0 += kOut * kWThreads) {
+    const bool with_db = e0 == 0 && jb.tap == 4 && jb.j < 4 && threadIdx.x < 16;
+    float acc[kOut] = {};
+    float db = 0.f;
+    for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+      const size_t img = (size_t)(t / (tiles_y * tiles_x)) * H * W;
+      const int ty0 = ((t / tiles_x) % tiles_y) * kTH, tx0 = (t % tiles_x) * kTW;
+      __syncthreads();
+      stage_tile(zs, 16, fs, jb.cin, z, feat, jb, img, ty0, tx0, H, W, total);
+      __syncthreads();
+      if (with_db) sum_db(db, zs, 16);
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) {
+        const int e = e0 + threadIdx.x + i * kWThreads;
+        if (e >= outs) break;
+        const int co = e / jb.cin, ci = e % jb.cin;
+        float s = 0.f;
+#pragma unroll 4
+        for (int p = 0; p < kTH * kTW; ++p)
+          s = fmaf(zs[p * 16 + co], fs[((p / kTW + ty) * kFW + p % kTW + tx) * jb.cin + ci], s);
+        acc[i] += s;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kOut; ++i) {
-      const int e = threadIdx.x + i * kWThreads;
+      const int e = e0 + threadIdx.x + i * kWThreads;
       if (e >= outs) break;
       const int co = e / jb.cin, ci = e % jb.cin;
-      float s = 0.f;
-#pragma unroll 4
-      for (int p = 0; p < kTH * kTW; ++p)
-        s = fmaf(zs[p * 16 + co], fs[((p / kTW + ty) * kFW + p % kTW + tx) * jb.cin + ci], s);
-      acc[i] += s;
+      out[((size_t)(jb.co0 + co) * jb.cin + ci) * 9 + jb.tap] = acc[i];
     }
+    if (with_db) db_partial[(size_t)blockIdx.y * 4 * gc + jb.j * gc + jb.co0 + threadIdx.x] = db;
   }
-  float* out = partial + (size_t)blockIdx.y * (9 * (size_t)(4 * gc * nf + 6 * gc * gc + nf * total)) + jb.woff;
-#pragma unroll
-  for (int i = 0; i < kOut; ++i) {
-    const int e = threadIdx.x + i * kWThreads;
-    if (e >= outs) break;
-    const int co = e / jb.cin, ci = e % jb.cin;
-    out[((size_t)(jb.co0 + co) * jb.cin + ci) * 9 + jb.tap] = acc[i];
-  }
-  if (with_db) db_partial[(size_t)blockIdx.y * 4 * gc + jb.j * gc + jb.co0 + threadIdx.x] = db;
 }
 
 // ---------------------------------------------------------------- part 3: sum the splits in a fixed order
@@ -518,29 +532,34 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // `z` (N x H x W x (nf + 4*gc)), `partial` (splits x the weight count) and
 // `db_partial` (splits x 4*gc) are scratch; dw is [dW_1 .. dW_5], each OIHW,
 // and db the growth convs' [db_1 .. db_4], both f32. bf16 reads the dW plan:
-// `jobs` (njobs x 5 ints) and `bounds` (splits + 1 ints, each split's pixel
-// tiles); f32 ignores them. Returns a cudaError_t value; 0 is success.
+// `jobs` (njobs x kJobInts ints, each job's input channels at most kMaxCic)
+// and `bounds` (splits + 1 ints, each split's pixel tiles); f32 ignores them.
+// Returns a cudaError_t value; 0 is success.
 extern "C" int climsr_rdb_bwd(const void* feat, const void* g, const void* w, void* dx, void* z, float* partial,
                               float* db_partial, float* dw, float* db, const int* jobs, const int* bounds, int njobs,
                               int n, int h, int w_, int nf, int gc, int th, int tw, int splits, float gy_scale,
                               float gx_scale, int is_bf16, void* stream) {
   if (n < 1 || h < 1 || w_ < 1 || th < 1 || tw < 1 || n > 65535 || splits < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
-  if (nf % 16 || gc % 16 || nf + 4 * gc > 128) return (int)cudaErrorInvalidValue;  // wgrad: <= 8 input tiles
+  if (nf % 16 || gc % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int total = nf + 4 * gc;
   const dim3 grid((w_ + tw - 1) / tw, (h + th - 1) / th, n);
   cudaError_t err;
   if (is_bf16) {
-    if (!chain_fits(nf, gc, th, tw) || jobs == nullptr || bounds == nullptr || njobs != total / 16)
+    if (!chain_fits(nf, gc, th, tw) || jobs == nullptr || bounds == nullptr || njobs < total / 16)
       return (int)cudaErrorInvalidValue;
     const size_t smem = chain_smem(nf, gc, th, tw);
-    if ((err = allow_smem(rdb_bwd_dx_bf16_kernel, smem)) != cudaSuccess) return (int)err;
-    rdb_bwd_dx_bf16_kernel<<<grid, kThreads, smem, s>>>(
+    using Kernel = decltype(&rdb_bwd_dx_bf16_kernel<1>);
+    const Kernel kernels[kMaxGrowthQ] = {&rdb_bwd_dx_bf16_kernel<1>, &rdb_bwd_dx_bf16_kernel<2>,
+                                             &rdb_bwd_dx_bf16_kernel<3>};
+    const Kernel dx_kernel = kernels[gc / 16 - 1];
+    if ((err = allow_smem(dx_kernel, smem)) != cudaSuccess) return (int)err;
+    dx_kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const bf16*>(g), static_cast<const bf16*>(feat), static_cast<bf16*>(dx), static_cast<bf16*>(z),
         static_cast<const bf16*>(w), h, w_, nf, gc, th, tw, gy_scale, gx_scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const size_t wsmem = 2 * (size_t)wgrad_stage_elems(total) * sizeof(bf16);
+    const size_t wsmem = 2 * (size_t)wgrad_stage_elems(total < kMaxCic ? total : kMaxCic) * sizeof(bf16);
     if ((err = allow_smem(rdb_wgrad_bf16_kernel, wsmem)) != cudaSuccess) return (int)err;
     rdb_wgrad_bf16_kernel<<<njobs * splits, kThreads, wsmem, s>>>(static_cast<const bf16*>(z),
                                                                    static_cast<const bf16*>(feat), jobs, bounds,

@@ -1,5 +1,6 @@
 // Shared pieces of the residual-dense-block kernels (rdb_fwd.cu, rdb_bwd.cu)
-// and of kernels C, E and F (conv9_dx_c0.cu, hr_tail.cu, dc0.cu).
+// and of kernels C and E (conv9_dx_c0.cu, hr_tail.cu; kernel F's entry point
+// launches C's kernel).
 //
 // The forward (kernels A and B1) and the input-gradient half of the backward
 // (kernel B2) are the same shape of computation: a chain of five 3x3 convs
@@ -7,7 +8,9 @@
 // each conv over a region one pixel smaller than the last. They differ only in
 // what is loaded first and in each conv's epilogue, so the chain itself lives
 // here: `conv_chain` (bf16, tensor cores, weights streamed through a
-// shared-memory ring) and `conv3x3_fma` (f32, CUDA cores, one conv). Below
+// shared-memory ring; nf = 64 and gc = 16, 32 or 48, the tile chosen by the
+// wrapper from the shared-memory budget) and `conv3x3_fma` (f32, CUDA cores,
+// one conv, any widths). Below
 // them are the instructions every bf16 kernel builds on: cp.async copies,
 // ldmatrix, mma.sync m16n8k16 and wgmma m64n64k16 with its shared-memory
 // descriptor. Kernel E (hr_tail.cu) runs its 64 -> 64 HRconv the way
@@ -117,25 +120,29 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 
 // The chain's weights arrive packed conv after conv, k-step (ci group of 16,
 // tap) after k-step, ci group outermost. A growth conv's k-step is
-// [32 lanes][8 bf16], the lanes holding mma.m16n8k16's B fragments for its 16
-// outputs (ops/rdb.py `fragment_index`). The last conv's k-step is wgmma's K-major B
+// [gc / 16][32 lanes][8 bf16], the lanes holding mma.m16n8k16's B fragments
+// for each block of 16 outputs (ops/rdb.py `fragment_index`). The last conv's
+// k-step is wgmma's K-major B
 // tile of 16 k x 64 outputs without swizzle: core matrices of 8 outputs x 8 k
 // (128 contiguous bytes, one output per 16-byte row), core matrix (output
 // block b, k half h) at (2b + h) * 128 bytes. A chunk is kSlotCols / cout
-// consecutive ci groups of one conv (4 of a growth conv, 1 of the last conv),
-// one ring slot.
+// consecutive ci groups of one conv (4 of a growth conv at gc = 16, 2 at
+// gc = 32, 1 at gc = 48; 1 of the last conv), one ring slot.
 constexpr int kSlotCols = 64;
 constexpr int kSlotElems = 9 * 16 * kSlotCols;  // 18,432 bytes
 constexpr int kRingBytes = 2 * kSlotElems * 2;  // two slots
 constexpr int kGrowthMT = 5;  // growth conv: 16-pixel M-tiles per warp (36 in conv 1 at 16 x 16 tiles)
+constexpr int kMaxGrowthQ = 3;  // growth conv: 16-output blocks (gc / 16) the engine is built for
 constexpr int kLastMT = 2;    // last conv: 64-pixel M-blocks per warpgroup (4 at 16 x 16 tiles)
 constexpr int kLastN = 64;    // last conv: its outputs, wgmma's N
 
-// The shapes conv_chain takes: gc = 16, nf = 64, and tiles small enough that
-// each conv's M-tiles fit the warps' share.
+// The shapes conv_chain takes: nf = 64 (wgmma's N), gc a multiple of 16 up to
+// 16 * kMaxGrowthQ, and tiles small enough that each conv's M-tiles fit the
+// warps' share.
 inline bool chain_fits(int nf, int gc, int th, int tw) {
-  return gc == 16 && nf == kLastN && th >= 1 && tw >= 1 && th <= 16 && tw <= 16 &&
-         (th + 8) * (tw + 8) <= 16 * kWarps * kGrowthMT && th * tw <= 16 * kWarps * kLastMT;
+  return nf == kLastN && gc % 16 == 0 && gc >= 16 && gc <= 16 * kMaxGrowthQ && th >= 1 && tw >= 1 &&
+         th <= 16 && tw <= 16 && (th + 8) * (tw + 8) <= 16 * kWarps * kGrowthMT &&
+         th * tw <= 16 * kWarps * kLastMT;
 }
 
 // Shared memory of a chain kernel: the ring (at the start: wgmma reads it),
@@ -181,12 +188,14 @@ __device__ __forceinline__ const bf16* ring_next(WeightStream& ws, bf16* ring, i
 }
 
 // One growth conv's products for a warp that holds MT M-tiles, every k-step
-// of conv c streamed through the ring (chunks j, j + 1, ..). Every warp of
-// the block holds the same MT: an M-tile past the region computes on a
-// clamped pixel and is dropped, so the loop has no branch and the loads of
-// one tap can run ahead of the products of the last.
-template <int MT>
-__device__ __forceinline__ void growth_products(float (&acc)[kGrowthMT][2][4], const bf16* feat,
+// of conv c streamed through the ring (chunks j, j + 1, ..). A k-step holds
+// NQ = gc / 16 blocks of 16 outputs, each lane's B fragments of block q one
+// 16-byte vector at (k-step * NQ + q) * 32 + lane; one A fragment feeds all
+// 2 * NQ n-tiles. Every warp of the block holds the same MT: an M-tile past
+// the region computes on a clamped pixel and is dropped, so the loop has no
+// branch and the loads of one tap can run ahead of the products of the last.
+template <int MT, int NQ>
+__device__ __forceinline__ void growth_products(float (&acc)[kGrowthMT][2 * NQ][4], const bf16* feat,
                                                 const int (&base)[kGrowthMT], WeightStream& ws, bf16* ring, int& j,
                                                 int c, int pw, int cp) {
   const int groups = ws.groups(c), per = ws.per_chunk(c);
@@ -199,24 +208,67 @@ __device__ __forceinline__ void growth_products(float (&acc)[kGrowthMT][2][4], c
       const int ch = (k * per + gl) * 16;
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
-        const uint4 b = slot[(gl * 9 + tap) * 32];
+        uint4 b[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) b[q] = slot[((gl * 9 + tap) * NQ + q) * 32];
         const int off = ((tap / 3 - 1) * pw + tap % 3 - 1) * cp + ch;
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           unsigned a[4];
           ldmatrix_x4(a, feat + base[i] + off);
-          mma_bf16(acc[i][0], a, b.x, b.y);
-          mma_bf16(acc[i][1], a, b.z, b.w);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            mma_bf16(acc[i][2 * q], a, b[q].x, b[q].y);
+            mma_bf16(acc[i][2 * q + 1], a, b[q].z, b[q].w);
+          }
         }
       }
     }
   }
 }
 
+// The four growth convs of conv_chain (below) for gc = 16 * NQ.
+template <int NQ, class Growth>
+__device__ __forceinline__ void growth_convs(const bf16* feat, WeightStream& ws, bf16* ring, int& j, int pw, int th,
+                                             int tw, int cp, const Growth& growth) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // accumulator rows g, g + 8; columns 2t, 2t + 1
+  for (int c = 0; c < 4; ++c) {
+    const int r0 = 1 + c, rh = th + 2 * kHalo - 2 - 2 * c, rw = tw + 2 * kHalo - 2 - 2 * c;
+    const int npix = rh * rw, mtiles = (npix + 15) / 16;
+    int base[kGrowthMT];  // the buffer element this lane feeds to ldmatrix, for each M-tile
+#pragma unroll
+    for (int i = 0; i < kGrowthMT; ++i) {
+      int m = (warp + kWarps * i) * 16 + (lane & 15);
+      if (m >= npix) m = 0;  // rows past the region: any valid pixel, result dropped
+      base[i] = ((r0 + m / rw) * pw + r0 + m % rw) * cp + (lane >> 4) * 8;
+    }
+    float acc[kGrowthMT][2 * NQ][4] = {};
+    switch ((mtiles + kWarps - 1) / kWarps) {  // M-tiles per warp, the same for the whole block
+      case 1: growth_products<1, NQ>(acc, feat, base, ws, ring, j, c, pw, cp); break;
+      case 2: growth_products<2, NQ>(acc, feat, base, ws, ring, j, c, pw, cp); break;
+      case 3: growth_products<3, NQ>(acc, feat, base, ws, ring, j, c, pw, cp); break;
+      case 4: growth_products<4, NQ>(acc, feat, base, ws, ring, j, c, pw, cp); break;
+      default: growth_products<5, NQ>(acc, feat, base, ws, ring, j, c, pw, cp); break;
+    }
+#pragma unroll
+    for (int i = 0; i < kGrowthMT; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = (warp + kWarps * i) * 16 + g + 8 * half;
+        if (m >= npix) continue;
+#pragma unroll
+        for (int nt = 0; nt < 2 * NQ; ++nt)
+          growth(c, r0 + m / rw, r0 + m % rw, nt * 8 + 2 * t, acc[i][nt][2 * half], acc[i][nt][2 * half + 1]);
+      }
+    phase_clock(2 + c);
+  }
+}
+
 // The five 3x3 convs of an RDB chain, bf16 on the tensor cores with f32
 // sums, over the pixel-major buffer `feat` (cp = nf + 4*gc + kPad channels
 // per pixel, pw pixels per row, the th x tw tile at (kHalo, kHalo)). Growth
-// conv c (0..3, gc = 16 outputs) reads channels [0, nf + c*gc) over the
+// conv c (0..3, gc outputs) reads channels [0, nf + c*gc) over the
 // region one pixel smaller on every side than conv c - 1's (conv 0: the
 // buffer less one pixel) and hands each pair of sums to growth(c, buffer y,
 // buffer x, channel, v0, v1), which stores it for the next conv. The last conv
@@ -224,18 +276,21 @@ __device__ __forceinline__ void growth_products(float (&acc)[kGrowthMT][2][4], c
 // sums to last(y, x, channel, v0, v1). between() runs once every growth
 // output is in the buffer, before the last conv's products. The caller has
 // started its buffer loads (plain stores or cp.async, not yet committed); the
-// first barrier here covers them.
+// first barrier here covers them. chain_fits() holds.
 //
 // The weights stream through `ring` (two kSlotElems slots) one chunk ahead
 // of the products, so device memory (L2) is read once per block and conv.
 // A warp owns M-tiles (16 pixels) warp, warp + 8, ... of each conv; its
 // accumulators stay in registers across the chunks. Growth convs run on
-// mma.sync m16n8k16: one A fragment (ldmatrix from the buffer) feeds both
-// 8-output n-tiles. The last conv runs on wgmma m64n64k16: M-tiles warp and
-// warp + 8 of the four warps of a warpgroup are two 64-pixel M-blocks, A
-// comes from registers (ldmatrix, so a tap stays an address offset) and B
-// straight from the ring slot, and one A fragment feeds all 64 outputs.
-template <class Growth, class Last, class Between>
+// mma.sync m16n8k16: one A fragment (ldmatrix from the buffer) feeds all
+// gc / 8 n-tiles of 8 outputs (2 at gc = 16, 4 at gc = 32). The last conv
+// runs on wgmma m64n64k16: M-tiles warp and warp + 8 of the four warps of a
+// warpgroup are two 64-pixel M-blocks, A comes from registers (ldmatrix, so a
+// tap stays an address offset) and B straight from the ring slot, and one A
+// fragment feeds all 64 outputs. NQ = gc / 16 is a template parameter, so
+// each growth width is a kernel of its own: gc = 16's code and registers do
+// not depend on the wider ones'.
+template <int NQ, class Growth, class Last, class Between>
 __device__ __forceinline__ void conv_chain(const bf16* feat, bf16* ring, const bf16* __restrict__ w, int nf,
                                            int gc, int pw, int th, int tw, const Growth& growth, const Last& last,
                                            const Between& between) {
@@ -247,36 +302,7 @@ __device__ __forceinline__ void conv_chain(const bf16* feat, bf16* ring, const b
   cp_async_commit();
   int j = 0;  // chunks consumed
 
-  for (int c = 0; c < 4; ++c) {
-    const int r0 = 1 + c, rh = th + 2 * kHalo - 2 - 2 * c, rw = tw + 2 * kHalo - 2 - 2 * c;
-    const int npix = rh * rw, mtiles = (npix + 15) / 16;
-    int base[kGrowthMT];  // the buffer element this lane feeds to ldmatrix, for each M-tile
-#pragma unroll
-    for (int i = 0; i < kGrowthMT; ++i) {
-      int m = (warp + kWarps * i) * 16 + (lane & 15);
-      if (m >= npix) m = 0;  // rows past the region: any valid pixel, result dropped
-      base[i] = ((r0 + m / rw) * pw + r0 + m % rw) * cp + (lane >> 4) * 8;
-    }
-    float acc[kGrowthMT][2][4] = {};
-    switch ((mtiles + kWarps - 1) / kWarps) {  // M-tiles per warp, the same for the whole block
-      case 1: growth_products<1>(acc, feat, base, ws, ring, j, c, pw, cp); break;
-      case 2: growth_products<2>(acc, feat, base, ws, ring, j, c, pw, cp); break;
-      case 3: growth_products<3>(acc, feat, base, ws, ring, j, c, pw, cp); break;
-      case 4: growth_products<4>(acc, feat, base, ws, ring, j, c, pw, cp); break;
-      default: growth_products<5>(acc, feat, base, ws, ring, j, c, pw, cp); break;
-    }
-#pragma unroll
-    for (int i = 0; i < kGrowthMT; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = (warp + kWarps * i) * 16 + g + 8 * half;
-        if (m >= npix) continue;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          growth(c, r0 + m / rw, r0 + m % rw, nt * 8 + 2 * t, acc[i][nt][2 * half], acc[i][nt][2 * half + 1]);
-      }
-    phase_clock(2 + c);
-  }
+  growth_convs<NQ>(feat, ws, ring, j, pw, th, tw, cp, growth);
 
   const int npix = th * tw, mtiles = (npix + 15) / 16;
   int base[kLastMT];

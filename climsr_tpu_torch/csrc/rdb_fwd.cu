@@ -30,26 +30,32 @@
 // padding holds for every conv: x and every growth value at a position
 // outside the image are zero in the buffer. Sums are f32.
 //
-// - bfloat16 (`rdb_fwd_bf16_kernel`, nf = 64, gc = 16): the five convs are
-//   `conv_chain` of rdb_common.cuh, implicit GEMMs on the tensor cores with
+// - bfloat16 (`rdb_fwd_bf16_kernel<gc / 16>`, nf = 64, gc = 16, 32 or 48, one
+//   kernel per growth width): the five convs are `conv_chain` of rdb_common.cuh, implicit GEMMs on the tensor cores with
 //   f32 sums (rows: the region's pixels; columns: output channels; K = 9 taps
 //   x cin). The buffer is pixel-major, channels padded by 8 so the eight rows
 //   of an ldmatrix fall on distinct banks; A fragments come from it with
 //   ldmatrix, so a tap is an address offset. The weights (packed once by the
 //   wrapper, `chain_index`) stream through a ring of two 18,432-byte slots
 //   in shared memory with cp.async, one chunk (16 input channels x 9 taps x
-//   64 outputs, or 64 inputs of a growth conv) ahead of the products, so each
-//   block reads its 249 KB of weights from L2 once. x's copies land with the
-//   first chunk. The growth convs (16 outputs) run on mma.sync m16n8k16,
-//   each warp holding up to 5 M-tiles of 16 pixels with no branch in the
-//   loop; conv5 (64 outputs) runs on wgmma m64n64k16, two 64-pixel M-blocks
-//   per warpgroup, A from registers and B straight from the ring. wgmma is
-//   not used for the growth convs: with 16 outputs each A fragment feeds
-//   only 16 columns, and their time goes to reading A from shared memory
-//   (16 operations per byte), which wgmma would not change.
-//   Shared memory: 36,864 bytes of ring + 26 x 26 x 136 x 2 = 183,872 bytes
-//   of buffer = 220,736 of the 232,448 a block may use, so one block of 8
-//   warps per SM.
+//   64 outputs, or 64 / gc input groups of a growth conv) ahead of the
+//   products, so each block reads its 249 KB (gc = 16) or 479 KB (gc = 32)
+//   of weights from L2 once. x's copies land with the first chunk. The
+//   growth convs (gc outputs) run on mma.sync m16n8k16, each warp holding up
+//   to 5 M-tiles of 16 pixels with no branch in the loop, one A fragment
+//   feeding gc / 8 n-tiles; conv5 (64 outputs) runs on wgmma m64n64k16, two
+//   64-pixel M-blocks per warpgroup, A from registers and B straight from
+//   the ring. wgmma is not used for the growth convs: with 16 or 32 outputs
+//   each A fragment feeds few columns, and their time goes to reading A from
+//   shared memory, which wgmma would not change.
+//   Tile and shared memory (the wrapper's `_tile`, the first that fits):
+//   gc = 16, 16 x 16: 36,864 bytes of ring + 26 x 26 x 136 x 2 = 183,872
+//   bytes of buffer = 220,736; gc = 32, 8 x 16 (16 x 16 would need 270,400
+//   bytes of buffer): 36,864 + 18 x 26 x 200 x 2 = 224,064, ~1.53x halo
+//   recompute, conv5 two 64-pixel M-blocks, one per warpgroup (12 x 12 fits
+//   too, but its three M-blocks and 25 growth M-tiles ran 12-28% slower in
+//   B1 and B2, `scripts/bench_rdb_tiles.py`); gc = 48, 8 x 8: 207,936. One block of 8 warps per SM of the
+//   232,448 bytes a block may use.
 // - float32 (`rdb_fwd_f32_kernel`): CUDA-core FMA over a channel-major buffer,
 //   each work item 2 pixels x 8 output channels, weights tap-major
 //   [tap][cin][cout] read through L1 (a warp-wide broadcast).
@@ -65,7 +71,9 @@
 // 8% and the epilogue 6%, with nothing to overlap them (one block per SM);
 // and the halo recompute, ~1.27x the useful MACs at 16 x 16 tiles. B1 at the
 // training shape (192 x 64 x 32 x 32, bf16) needs 48.9 GFLOP (49 us)
-// against 126 MB (38 us), so it is bound by operations too.
+// against 126 MB (38 us), so it is bound by operations too. At gc = 32 an
+// RDB does 239,616 MAC a pixel (124,416 at gc = 16), so both bounds nearly
+// double and stay set by the operations.
 
 #include "rdb_common.cuh"
 
@@ -118,7 +126,9 @@ struct ResidualStore {
   }
 };
 
-// one block per SM: the ring and the buffer take 220,736 of the 232,448 bytes a block may use
+// one block per SM: the ring and the buffer take up to 224,064 of the 232,448 bytes a block may use;
+// one kernel per growth width gc = 16 * NQ
+template <int NQ>
 __global__ void __launch_bounds__(kThreads, 1)
     rdb_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x0, bf16* __restrict__ out,
                         bf16* __restrict__ saved, const bf16* __restrict__ w, const float* __restrict__ b, int H,
@@ -144,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const GrowthStore growth{feat, b, cp, pw, nf, gc, oy, ox, H, W};
   const ResidualStore last{feat, x0, out, b + 4 * gc, img, cp, pw, oy, ox, H, W, nf};
-  conv_chain(feat, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
+  conv_chain<NQ>(feat, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
     if (saved == nullptr) return;
     // B1: the tile's [x, h_1 .. h_4] to device memory, 16 bytes at a time
     const int total = nf + 4 * gc, tv = total / 8;
@@ -264,8 +274,10 @@ int forward(const void* x, const void* x0, void* out, void* saved, const void* w
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (!chain_fits(nf, gc, th, tw)) return (int)cudaErrorInvalidValue;
-    return launch<decltype(&rdb_fwd_bf16_kernel), bf16, bf16>(&rdb_fwd_bf16_kernel, chain_smem(nf, gc, th, tw), x,
-                                                              x0, out, saved, w, b, n, h, w_, nf, gc, th, tw, s);
+    using Kernel = decltype(&rdb_fwd_bf16_kernel<1>);
+    const Kernel kernels[kMaxGrowthQ] = {&rdb_fwd_bf16_kernel<1>, &rdb_fwd_bf16_kernel<2>, &rdb_fwd_bf16_kernel<3>};
+    return launch<Kernel, bf16, bf16>(kernels[gc / 16 - 1], chain_smem(nf, gc, th, tw), x, x0, out, saved, w, b, n, h,
+                                      w_, nf, gc, th, tw, s);
   }
   if (nf % kQ || gc % kQ || tw % kP) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(nf + 4 * gc) * (th + 2 * kHalo) * (tw + 2 * kHalo) * sizeof(float);

@@ -23,12 +23,14 @@ is an SRCNN over ``concat(out, elevation, mask)``; in training only channel 0
   convs, as the JAX package leaves them to XLA; dX is the kernel, exact for
   channel 0 and ZERO for channels 1+. It is valid only where those channels'
   gradients are discarded: ESRGAN turns it on only with one output channel.
-- :func:`dc0` is kernel F, ``csrc/dc0.cu`` (replacing the probe kernels
-  ``_dc0_kernel`` and ``_dc0_kernel_dyfac`` of
-  ``scripts/bench_head_bwd_probe.py:48,68``): C's function by the TPU
-  kernels' plan, a projection of g onto the 81 reversed taps on the tensor
-  cores and then shift-adds, in the "flat" and "dyfac" orders. Its plain
-  version is :func:`dc0_reference`. Only the probe
+- :func:`dc0` is kernel F's entry point (the probe kernels ``_dc0_kernel``
+  and ``_dc0_kernel_dyfac`` of ``scripts/bench_head_bwd_probe.py:48,68``):
+  C's function with the probe's arguments, ``g`` and the channel-0 taps
+  ``w1c0`` (9, 9, C). The TPU had a projection plan for it, in two orders
+  ("flat" and "dyfac"); on the card it launches kernel C with the weight view
+  :func:`dc0_weight`, as D launches kernel A. ``variant`` is checked and
+  counted and selects no other code. Its plain version is
+  :func:`dc0_reference`. Only the probe
   (``climsr_tpu_torch.scripts.bench_head_bwd_probe``) runs it; C stays on the
   training path.
 """
@@ -88,24 +90,29 @@ def conv9_dx_c0(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     have 64 channels and ``weight`` is read rounded to bf16."""
     if g.device.type == "cpu":
         return conv9_dx_c0_reference(g, weight)
+    return _launch_conv9(g, weight, counter=conv9_dx_c0)
+
+
+def _launch_conv9(g: torch.Tensor, weight: torch.Tensor, counter) -> torch.Tensor:
+    """Kernel C on the current stream for a CUDA ``g``; adds one to
+    ``counter.launches``, the entry point's count."""
+    name = counter.__name__
     if g.device.type != "cuda":
-        raise ValueError(f"conv9_dx_c0 runs on CUDA or CPU tensors, got {g.device}")
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {g.device}")
     if g.dim() != 4 or g.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"conv9_dx_c0 takes an (N, C, H, W) float32 or bfloat16 tensor, "
-                        f"got {g.dtype} {tuple(g.shape)}")
+        raise TypeError(f"{name} takes an (N, C, H, W) float32 or bfloat16 tensor, got {g.dtype} {tuple(g.shape)}")
     n, cout, h, w = g.shape
     if tuple(weight.shape[:1]) + tuple(weight.shape[2:]) != (cout, 9, 9) or weight.device != g.device:
         raise ValueError(f"weight {tuple(weight.shape)} on {weight.device} is not a 9x9 conv "
                          f"with {cout} outputs on {g.device}")
     if cout % _CHUNK or n > 65535:
-        raise ValueError(f"conv9_dx_c0 kernel takes cout divisible by {_CHUNK} and at most 65535 images, "
-                         f"got {cout}, {n}")
+        raise ValueError(f"{name} kernel takes C divisible by {_CHUNK} and at most 65535 images, got {cout}, {n}")
     if not g.is_contiguous(memory_format=torch.channels_last) or g.data_ptr() % 16:
-        raise ValueError("conv9_dx_c0 kernel needs g in torch.channels_last memory format, 16-byte aligned")
+        raise ValueError(f"{name} kernel needs g in torch.channels_last memory format, 16-byte aligned")
     bf16 = g.dtype == torch.bfloat16
     if bf16:
         if cout != _BF16_COUT:
-            raise ValueError(f"conv9_dx_c0 bf16 kernel takes {_BF16_COUT} channels, got {cout}")
+            raise ValueError(f"{name} bf16 kernel takes {_BF16_COUT} channels, got {cout}")
         wk = pack_wrev(weight.detach())
     else:  # wf[c][u][v] = W[c, 0, 8 - u, 8 - v]: the taps of channel 0, flipped, in f32
         wk = weight.detach()[:, 0].float().flip(1, 2).contiguous()
@@ -117,8 +124,8 @@ def conv9_dx_c0(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         err = lib.climsr_conv9_dx_c0(g.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, w, cout, int(bf16),
                                      torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv9_dx_c0 kernel launch failed: CUDA error {err}")
-    conv9_dx_c0.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    counter.launches += 1
     return out
 
 
@@ -165,10 +172,9 @@ def fusion_conv1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> t
 
 
 # ---------------------------------------------------------------------------
-# Kernel F: C's function by projection and shift-adds (the probe's two variants)
+# Kernel F: C's function with the probe's arguments, on C's kernel
 
-_DC0_SOURCES = ("dc0.cu",)
-DC0_VARIANTS = {"flat": (9, 96), "dyfac": (16, 144)}  # variant: (rows per dy, projection width)
+DC0_VARIANTS = ("flat", "dyfac")  # the TPU probe's two plans (F1, F2)
 
 
 def dc0_reference(g: torch.Tensor, w1c0: torch.Tensor) -> torch.Tensor:
@@ -181,66 +187,35 @@ def dc0_reference(g: torch.Tensor, w1c0: torch.Tensor) -> torch.Tensor:
     return F.conv2d(g.float(), wrev, padding=4).to(g.dtype)
 
 
-def dc0_tap_rows(w1c0: torch.Tensor, variant: str) -> torch.Tensor:
-    """The projection's weight matrix (width x C) of a variant: the spatially
-    reversed taps, tap (dy, dx) (0..8 each) in row ``rows_per_dy * dy + dx``,
-    zero elsewhere (``bench_head_bwd_probe.py:101-108``)."""
-    per_dy, width = DC0_VARIANTS[variant]
-    c = w1c0.shape[-1]
-    t = torch.arange(81, device=w1c0.device)
-    rows = torch.zeros(width, c, dtype=w1c0.dtype, device=w1c0.device)
-    rows[per_dy * (t // 9) + t % 9] = w1c0.flip(0, 1).reshape(81, c)
-    return rows
-
-
-def _dc0_library() -> ctypes.CDLL:
-    lib = cuda_lib.load("climsr_dc0", _DC0_SOURCES)
-    for fn in (lib.climsr_dc0_flat, lib.climsr_dc0_dyfac):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+def dc0_weight(w1c0: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Kernel C's weight for ``w1c0`` (9, 9, C): the (C, 1, 9, 9) view ``W[c,
+    0, u, v] = w1c0[u, v, c]``, rounded to ``dtype`` as :func:`dc0_reference`
+    reads it; ``conv9_dx_c0_reference(g, dc0_weight(w1c0, g.dtype))`` is
+    ``dc0_reference(g, w1c0)``."""
+    return w1c0.to(dtype).permute(2, 0, 1).unsqueeze(1)
 
 
 def dc0(g: torch.Tensor, w1c0: torch.Tensor, variant: str = "flat") -> torch.Tensor:
-    """Kernel F: :func:`dc0_reference`'s function by the probe's plan, "flat"
-    (F1, ``_dc0_kernel``) or "dyfac" (F2, ``_dc0_kernel_dyfac``). ``g``:
-    (N, C, H, W) channels_last, C a multiple of 16 up to 128 on the card;
-    ``w1c0``: (9, 9, C). On a CUDA tensor it launches ``csrc/dc0.cu`` on the
-    current stream or raises; on a CPU tensor it runs the plain version. A
-    forward-only probe: it takes no gradient, and refuses inputs that need one."""
+    """Kernel F: :func:`dc0_reference`'s function, "flat" (F1,
+    ``_dc0_kernel``) or "dyfac" (F2, ``_dc0_kernel_dyfac``). ``g``: (N, C, H,
+    W) channels_last; ``w1c0``: (9, 9, C). On a CUDA tensor it launches kernel
+    C (``csrc/conv9_dx_c0.cu``) on the current stream with
+    :func:`dc0_weight`, or raises: bf16 takes C = 64 (the probe's width, C's),
+    f32 any multiple of 16. It counts in ``dc0.launches`` and
+    ``dc0.variant_launches``, not in ``conv9_dx_c0.launches``. ``variant`` is
+    checked and counted and selects no other code: the TPU's two plans are
+    two orders of one sum, which C's plan replaces on this card. On a CPU
+    tensor it runs the plain version. A forward-only probe: it takes no
+    gradient, and refuses inputs that need one."""
     if variant not in DC0_VARIANTS:
         raise ValueError(f"dc0 variant is 'flat' or 'dyfac', got {variant!r}")
     if torch.is_grad_enabled() and (g.requires_grad or w1c0.requires_grad):
         raise ValueError("dc0 is a forward-only probe and takes no gradient")
     if g.device.type == "cpu":
         return dc0_reference(g, w1c0)
-    if g.device.type != "cuda":
-        raise ValueError(f"dc0 runs on CUDA or CPU tensors, got {g.device}")
-    if g.dim() != 4 or g.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"dc0 takes an (N, C, H, W) float32 or bfloat16 tensor, got {g.dtype} {tuple(g.shape)}")
-    n, c, h, w = g.shape
-    if tuple(w1c0.shape) != (9, 9, c) or w1c0.device != g.device:
-        raise ValueError(f"w1c0 {tuple(w1c0.shape)} on {w1c0.device} is not (9, 9, {c}) on {g.device}")
-    if c % 16 or not 16 <= c <= 128 or n > 65535:
-        raise ValueError(f"dc0 kernel takes C a multiple of 16 up to 128 and at most 65535 images, got {c}, {n}")
-    if not g.is_contiguous(memory_format=torch.channels_last) or g.data_ptr() % 16:
-        raise ValueError("dc0 kernel needs g in torch.channels_last memory format, 16-byte aligned")
-    rows = dc0_tap_rows(w1c0.to(g.dtype), variant)
-    if g.dtype == torch.bfloat16:
-        n_idx, k_idx = _fragment_index_on(rows.shape[0], c, g.device)
-        rows = rows[n_idx, k_idx]
-    rows = rows.contiguous()
-    out = torch.empty((n, 1, h, w), dtype=g.dtype, device=g.device)
-    if out.numel() == 0:
-        return out
-    lib = _dc0_library()
-    fn = lib.climsr_dc0_flat if variant == "flat" else lib.climsr_dc0_dyfac
-    with torch.cuda.device(g.device):
-        err = fn(g.data_ptr(), rows.data_ptr(), out.data_ptr(), n, h, w, c, int(g.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(g.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dc0 kernel launch failed: CUDA error {err}")
-    dc0.launches += 1
+    if g.dim() != 4 or tuple(w1c0.shape) != (9, 9, g.shape[1]):
+        raise ValueError(f"w1c0 {tuple(w1c0.shape)} is not (9, 9, C) for g {tuple(g.shape)}")
+    out = _launch_conv9(g, dc0_weight(w1c0, g.dtype), counter=dc0)
     dc0.variant_launches[variant] += 1
     return out
 

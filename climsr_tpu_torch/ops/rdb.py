@@ -31,22 +31,28 @@ residual is folded into the same write: ``x0 + 0.2 * (x + 0.2 * conv5)``.
 
 What bounds the kernels on an H100, and what their design does about it, is
 written at the top of ``csrc/rdb_fwd.cu`` and ``csrc/rdb_bwd.cu``. In short:
-the block is bound by operations (about 124k MAC per pixel against 6 bytes of
-traffic per channel-pixel in bf16), and the kernels keep the whole
-concatenation in shared memory so that only x, x0 and the output (and, in
-training, feat and z) cross device memory. In bf16 (nf=64, gc=16) A, B1 and
+the block is bound by operations (about 124k MAC per pixel at gc=16, 240k at
+gc=32, against 6 bytes of traffic per channel-pixel in bf16), and the kernels
+keep the whole concatenation in shared memory so that only x, x0 and the
+output (and, in training, feat and z) cross device memory. In bf16 A, B1 and
 B2's input-gradient pass share one conv chain (``csrc/rdb_common.cuh``
-``conv_chain``): the weights, packed once in :func:`chain_index`'s order,
-stream through a two-slot ring in shared memory; the 16-channel growth convs
-run on ``mma.sync`` and the 64-channel last conv on ``wgmma``. B2's weight
-gradient stages each pixel tile once for all nine taps, in splits given by
-:func:`wgrad_plan`, with per-split f32 partials summed in a fixed order (no
-atomics). Shared memory: the chain takes 220,736 of the 232,448 bytes a block
-may use at 16 x 16 tiles (one block per SM), the dW pass two 55,104-byte
-stages (two blocks per SM). What still holds them back is reading the growth
-convs' A fragments from shared memory (16 outputs per fragment), x's load and
-the epilogues with nothing to overlap them, and the ~1.27x halo recompute.
-float32 runs on the CUDA cores, at other widths too.
+``conv_chain``), which takes nf=64 and gc a multiple of 16 up to 48 (every
+ESRGAN config of the repo: gc=16 in ``conf/generator/esrgan.yaml``, gc=32 in
+``GeneratorConfig``'s defaults): the weights, packed once in
+:func:`chain_index`'s order, stream through a two-slot ring in shared memory;
+the gc-channel growth convs run on ``mma.sync`` (one A fragment feeds gc/8
+n-tiles) and the 64-channel last conv on ``wgmma``. The output tile is the
+first of ``_TILES`` whose buffer fits beside the ring (:func:`_tile`): 16 x 16
+at gc=16 (220,736 of the 232,448 bytes a block may use), 8 x 16 at gc=32
+(224,064; ~1.53x halo recompute against ~1.27x), 8 x 8 at gc=48; one block per
+SM. B2's weight gradient stages each pixel tile once for all nine taps, one
+block per (16 outputs, at most 128 inputs) job and split of the pixels, given
+by :func:`wgrad_plan`, with per-split f32 partials summed in a fixed order (no
+atomics); its two 55,104-byte stages fit two blocks per SM. What still holds
+them back is reading the growth convs' A fragments from shared memory (16 or
+32 outputs per fragment), x's load and the epilogues with nothing to overlap
+them, and the halo recompute. float32 runs on the CUDA cores, at any widths
+divisible by 16 (by 8 forward).
 
 Tensors are NCHW in ``torch.channels_last`` memory format (NHWC storage), so
 the cuDNN convs around the trunk and the kernel share one layout.
@@ -69,13 +75,23 @@ _SOURCES = ("rdb_fwd.cu",)  # kernels A and B1
 _BWD_SOURCES = ("rdb_bwd.cu",)  # kernel B2
 _MAX_SPLITS = 32  # kernel B2's f32 dW partials: at most this many splits of the pixels
 _WGRAD_TILE = (8, 16)  # kernel B2's bf16 dW pass: pixel tiles of 8 rows x 16 columns (kTH, kTW)
+_WGRAD_MAX_CIN = 128  # kernel B2's bf16 dW pass: input channels per job (kMaxCic)
 _HALO = 5
 _PAD = 8  # bf16 buffer channels per pixel: nf + 4*gc + _PAD (spreads ldmatrix rows over the banks)
 _RING_BYTES = 2 * 9 * 16 * 64 * 2  # bf16 chain: two weight slots of 9 taps x 16 inputs x 64 outputs
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-# output tiles (th, tw) tried in order; the first whose feature buffer fits is used
+# the bf16 chain (``chain_fits``): nf = 64 (wgmma's N), gc a multiple of 16 up to
+# 48, and each conv's 16-pixel M-tiles within 8 warps x 5 (growth) and 8 x 2 (last)
+_CHAIN_NF, _CHAIN_MAX_GC = 64, 48
+_GROWTH_MTILES, _LAST_MTILES = 8 * 5, 8 * 2
+# output tiles (th, tw) tried in order; the first whose feature buffer fits is used. bf16:
+# 16 x 16 at gc=16, 8 x 16 at gc=32, 8 x 8 at gc=48. At gc=32, 12 x 12 fits too and recomputes
+# less halo (~1.47x against ~1.53x), but its 144 pixels make three 64-row M-blocks for conv5's two
+# warpgroups and 25 growth M-tiles for 8 warps, where 8 x 16 makes two and 24, and it overhangs a
+# 32 x 32 image: on an H100 B1 and B2 ran 12-28% slower at 12 x 12 than at 8 x 16, and A no faster
+# (``scripts/bench_rdb_tiles.py``, PERF.md)
 _TILES = {
-    torch.bfloat16: ((16, 16),),  # the bf16 chain takes nf=64, gc=16 only, which fit 16 x 16
+    torch.bfloat16: ((16, 16), (8, 16), (8, 8)),
     torch.float32: ((8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2)),
 }
 
@@ -221,10 +237,15 @@ def pack_rdb_weights(weights: Weights, dtype: torch.dtype = torch.float32) -> Pa
 
 
 def _tile(nf: int, gc: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """The first tile of ``_TILES[dtype]`` whose feature buffer fits a block's
+    shared memory (bf16: beside the weight ring, ``chain_smem``; and within
+    the chain's M-tile limits), or ValueError."""
     for th, tw in _TILES[dtype]:
         ph, pw = th + 2 * _HALO, tw + 2 * _HALO
         if dtype == torch.bfloat16:
             smem = ph * pw * (nf + 4 * gc + _PAD) * 2 + _RING_BYTES
+            if (ph - 2) * (pw - 2) > 16 * _GROWTH_MTILES or th * tw > 16 * _LAST_MTILES:
+                continue
         else:
             smem = (nf + 4 * gc) * ph * pw * 4
         if smem <= _SMEM_LIMIT:
@@ -258,9 +279,10 @@ def _check(x: torch.Tensor, x0: Optional[torch.Tensor], packed: PackedWeights) -
         raise ValueError("fused_rdb kernel needs x in torch.channels_last memory format")
     if x.shape[1] != packed.nf:
         raise ValueError(f"x has {x.shape[1]} channels, the weights expect nf={packed.nf}")
-    if x.dtype == torch.bfloat16 and (packed.nf, packed.gc) != (64, 16):
-        raise ValueError(f"fused_rdb bf16 kernel takes nf=64, gc=16 (the flagship widths), "
-                         f"got nf={packed.nf}, gc={packed.gc}")
+    if x.dtype == torch.bfloat16 and (packed.nf != _CHAIN_NF or packed.gc % 16 or packed.gc > _CHAIN_MAX_GC):
+        raise ValueError(f"the bf16 RDB kernels take nf={_CHAIN_NF} and gc a multiple of 16 up to "
+                         f"{_CHAIN_MAX_GC} (every ESRGAN config of the repo), got nf={packed.nf}, "
+                         f"gc={packed.gc}; other widths on the tensor cores are open work (ROADMAP.md, fault 1)")
     if packed.nf % 8 or packed.gc % 8:
         raise ValueError(f"fused_rdb kernel needs nf and gc divisible by 8, got nf={packed.nf}, gc={packed.gc}")
     if x.shape[0] > 65535:
@@ -430,21 +452,8 @@ def transposed_chain(weights: Weights) -> List[Tuple[torch.Tensor, torch.Tensor]
     return chain
 
 
-def wgrad_plan(n: int, h: int, w: int, nf: int, gc: int, splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Which block of kernel B2's bf16 dW pass computes what: ``(jobs, bounds)``, int32.
-
-    ``jobs`` has one row per 16-channel group of ``z = [dz_5, dz_4 .. dz_1]``
-    (``(nf + 4*gc) / 16`` rows): (its first channel in z, the conv j (0-based)
-    whose output gradient it is, its first output channel in conv j, conv j's
-    cin, conv j's first weight in the flat ``[dW_1 .. dW_5]``). ``bounds``
-    (``splits + 1``) splits the pixel tiles: split s takes tiles ``bounds[s]
-    .. bounds[s + 1] - 1``, tile t being 8 x 16 pixels of image ``t // (ty *
-    tx)`` at rows ``8 * ((t // tx) % ty)``, columns ``16 * (t % tx)``, with ty,
-    tx the tiles per column and row. Block b takes job ``b % len(jobs)`` over
-    split ``b // len(jobs)``: rows co0 .. co0 + 15 of dW_j, every input channel
-    and tap, into that split's partial, and for a growth conv db_j at those
-    rows.
-    """
+def _wgrad_jobs(nf: int, gc: int) -> List[Tuple[int, int, int, int, int, int, int]]:
+    """The job rows of :func:`wgrad_plan`."""
     total = nf + 4 * gc
     woff = [0]
     for cout, cin, kh, kw in _conv_shapes(nf, gc):
@@ -452,11 +461,37 @@ def wgrad_plan(n: int, h: int, w: int, nf: int, gc: int, splits: int) -> Tuple[t
     jobs = []
     for zc in range(0, total, 16):
         j, co0 = (4, zc) if zc < nf else (3 - (zc - nf) // gc, (zc - nf) % gc)
-        jobs.append((zc, j, co0, nf + j * gc, woff[j]))
+        cin = nf + j * gc
+        groups, parts = cin // 16, -(-cin // _WGRAD_MAX_CIN)  # input groups of 16, cut in near-equal parts
+        for p in range(parts):
+            g0, g1 = p * groups // parts, (p + 1) * groups // parts
+            jobs.append((zc, j, co0, cin, woff[j], 16 * g0, 16 * (g1 - g0)))
+    return jobs
+
+
+def wgrad_plan(n: int, h: int, w: int, nf: int, gc: int, splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Which block of kernel B2's bf16 dW pass computes what: ``(jobs, bounds)``, int32.
+
+    ``jobs`` has a row per 16-channel group of ``z = [dz_5, dz_4 .. dz_1]`` and
+    part of its conv's input channels (at most 128 a part, near-equal parts:
+    one at gc=16, where every cin <= 128; conv5's 192 and conv4's 160 in two
+    halves each at gc=32): (its first channel in z, the conv j (0-based) whose
+    output gradient it is, its first output channel in conv j, conv j's cin,
+    conv j's first weight in the flat ``[dW_1 .. dW_5]``, the part's first
+    input channel ci0, its input channels cic). ``bounds`` (``splits + 1``)
+    splits the pixel tiles: split s takes tiles ``bounds[s] .. bounds[s + 1] -
+    1``, tile t being 8 x 16 pixels of image ``t // (ty * tx)`` at rows ``8 *
+    ((t // tx) % ty)``, columns ``16 * (t % tx)``, with ty, tx the tiles per
+    column and row. Block b takes job ``b % len(jobs)`` over split ``b //
+    len(jobs)``: rows co0 .. co0 + 15 and inputs ci0 .. ci0 + cic - 1 of dW_j,
+    every tap, into that split's partial, and, if ci0 is 0 and conv j is a
+    growth conv, db_j at those rows.
+    """
     th, tw = _WGRAD_TILE
     tiles = n * -(-h // th) * -(-w // tw)
     bounds = [s * tiles // splits for s in range(splits + 1)]
-    return torch.tensor(jobs, dtype=torch.int32), torch.tensor(bounds, dtype=torch.int32)
+    return (torch.tensor(_wgrad_jobs(nf, gc), dtype=torch.int32),
+            torch.tensor(bounds, dtype=torch.int32))
 
 
 @functools.lru_cache(maxsize=64)
@@ -473,9 +508,8 @@ def _sm_count(device: torch.device) -> int:
 def _check_bwd(feat: torch.Tensor, g: torch.Tensor, packed: PackedWeights) -> None:
     _check(g, None, packed)
     total = packed.nf + 4 * packed.gc
-    if packed.nf % 16 or packed.gc % 16 or total > 128:
-        raise ValueError(f"fused_rdb_bwd kernel needs nf and gc divisible by 16 and nf + 4*gc <= 128, "
-                         f"got nf={packed.nf}, gc={packed.gc}")
+    if packed.nf % 16 or packed.gc % 16:
+        raise ValueError(f"fused_rdb_bwd kernel needs nf and gc divisible by 16, got nf={packed.nf}, gc={packed.gc}")
     want = (g.shape[0], total) + tuple(g.shape[2:])
     if tuple(feat.shape) != want or feat.dtype != g.dtype or feat.device != g.device:
         raise ValueError(f"feat must be {want} in g's dtype and device, got {tuple(feat.shape)} {feat.dtype}")
@@ -508,8 +542,8 @@ def fused_rdb_bwd(
     z = torch.empty_like(feat, memory_format=torch.channels_last)
     sizes = [math.prod(s) for s in _conv_shapes(nf, gc)]
     tiles = n * -(-h // _WGRAD_TILE[0]) * -(-w // _WGRAD_TILE[1])
-    if bf16:  # two blocks per SM: (nf + 4*gc) / 16 jobs x splits
-        splits = max(1, min(tiles, 2 * _sm_count(g.device) // ((nf + 4 * gc) // 16)))
+    if bf16:  # two blocks per SM: jobs x splits
+        splits = max(1, min(tiles, 2 * _sm_count(g.device) // len(_wgrad_jobs(nf, gc))))
         jobs, bounds = _wgrad_plan_on(n, h, w, nf, gc, splits, g.device)
         plan = (jobs.data_ptr(), bounds.data_ptr(), jobs.shape[0])
     else:

@@ -8,7 +8,9 @@ bf16 (g channels_last, seeded), :func:`probe`:
 
 1. checks F1 ("flat") and F2 ("dyfac") of
    :func:`climsr_tpu_torch.ops.head_bwd.dc0` against ``dc0_reference``
-   (max |kernel - plain| / max |plain|, within ``TOL``);
+   (max |kernel - plain| / max |plain|, within ``TOL``). On the card both
+   variants launch kernel C's kernel through F's entry point (its weight
+   view and its own count), so F1, F2 and C time the same kernel;
 2. times, with CUDA events (median of 5 runs of 5 calls, after a warm-up),
    the library call that computes the same function
    (``F.conv_transpose2d(g, W[:, :1], padding=4)``), the plain version

@@ -12,10 +12,10 @@ numpy inputs in f32, against the Pallas kernels run in interpret mode:
   module globals fix), and the port's ``conv9_dx_c0_reference`` on a ragged
   shape.
 
-The host-side packing is checked here too: F's tap rows in both layouts and
-the emulated projection and shift-adds of each variant, as the CUDA kernel
-runs them. The CUDA kernels themselves are compared with their plain versions
-on the card (``chip_smoke.py`` and the ``cuda``-marked tests below).
+On the card F launches kernel C: its weight view through C's plain version
+is checked here to give F's plain version. The CUDA kernels themselves are
+compared with their plain versions on the card (``chip_smoke.py`` and the
+``cuda``-marked tests below).
 """
 import importlib.util
 from pathlib import Path
@@ -240,56 +240,24 @@ def test_dc0_is_kernel_c_function_on_a_ragged_shape(rng):
         head_bwd.dc0(_nchw(g).to("meta"), tw.to("meta"))
 
 
-@pytest.mark.parametrize("variant", ["flat", "dyfac"])
-def test_dc0_packing_and_shift_adds_as_the_kernel_runs_them(rng, variant):
-    """The tap rows are the probe's ``wp`` (``bench_head_bwd_probe.py:101-108``),
-    and the kernel's plan on them — V = rows @ g per pixel of the zero-padded
-    image, then flat: out = sum_t V[9 dy + dx] shifted by (dy, dx); dyfac:
-    A[dx] = sum_dy V[16 dy + dx] shifted by dy rows, out = sum_dx A[dx] shifted
-    by dx — gives dc0_reference. The bf16 packing is the mma B-fragment order
-    of those rows."""
-    c, h, w = 16, 11, 13
-    per_dy, width = head_bwd.DC0_VARIANTS[variant]
-    g = rng.normal(size=(h, w, c)).astype(np.float32)
-    w1c0 = rng.normal(size=(9, 9, c)).astype(np.float32)
-    rows = head_bwd.dc0_tap_rows(torch.from_numpy(w1c0), variant).numpy()
-    want_rows = np.zeros((width, c), np.float32)
-    t = np.arange(81)
-    want_rows[per_dy * (t // 9) + t % 9] = w1c0[::-1, ::-1].reshape(81, c)
-    np.testing.assert_array_equal(rows, want_rows)
-
-    gp = np.zeros((h + 8, w + 8, c), np.float32)
-    gp[4:4 + h, 4:4 + w] = g
-    v = np.einsum("nc,yxc->nyx", rows, gp)
-    out = np.zeros((h, w), np.float32)
-    if variant == "flat":
-        for dy in range(9):
-            for dx in range(9):
-                out += v[9 * dy + dx, dy:dy + h, dx:dx + w]
-    else:
-        a = np.zeros((9, h, w + 8), np.float32)
-        for dx in range(9):
-            for dy in range(9):
-                a[dx] += v[16 * dy + dx, dy:dy + h]
-        for dx in range(9):
-            out += a[dx][:, dx:dx + w]
-    want = head_bwd.dc0_reference(_nchw(g[None]), torch.from_numpy(w1c0))[0, 0].numpy()
-    _close(out, want)
-
-    from climsr_tpu_torch.ops.rdb import fragment_index
-
-    n_idx, k_idx = fragment_index(width, c)
-    packed = torch.from_numpy(rows).to(torch.bfloat16)[n_idx, k_idx].float().numpy().reshape(width // 16, c // 16, 32, 4, 2)
-    rb = torch.from_numpy(rows).to(torch.bfloat16).float().numpy()
-    for q in range(width // 16):
-        for s in range(c // 16):
-            for lane in range(32):
-                gq, tq = divmod(lane, 4)
-                for word in range(4):
-                    for half in range(2):
-                        n = 16 * q + 8 * (word // 2) + gq
-                        k = 16 * s + 2 * tq + 8 * (word % 2) + half
-                        assert packed[q, s, lane, word, half] == rb[n, k]
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -8)], ids=["f32", "bf16"])
+def test_dc0_weight_through_kernel_c_reference_is_dc0_reference(rng, dtype, tol):
+    """On the card dc0 launches kernel C with ``dc0_weight(w1c0, g.dtype)``
+    (W[c, 0] = w1c0[..., c], rounded to g's dtype): through C's plain version
+    that view gives dc0_reference. Both sum the same products in f32 (a
+    transposed conv against a flipped conv, so in another order) and round
+    once to g's dtype: 1e-5 of max in f32, one bf16 step (2^-8) of max in
+    bf16. C = 64, the probe's width."""
+    g = torch.from_numpy(rng.normal(size=(2, 64, 13, 21)).astype(np.float32)).to(dtype)
+    g = g.contiguous(memory_format=torch.channels_last)
+    w1c0 = torch.from_numpy(rng.normal(size=(9, 9, 64)).astype(np.float32) * 0.05)
+    weight = head_bwd.dc0_weight(w1c0, dtype)
+    assert weight.shape == (64, 1, 9, 9) and weight.dtype == dtype
+    assert torch.equal(weight[:, 0].float(), w1c0.to(dtype).float().permute(2, 0, 1))
+    want = head_bwd.dc0_reference(g, w1c0)
+    got = head_bwd.conv9_dx_c0_reference(g, weight)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (2, 1, 13, 21)
+    _close(got.float().numpy(), want.float().numpy(), rel=tol)
 
 
 @pytest.fixture()
@@ -310,6 +278,9 @@ def test_cuda_kernels_e_and_f_match_plain_versions(rng, cuda_device, dtype, tol)
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
     w1c0 = torch.from_numpy(rng.normal(size=(9, 9, 64)).astype(np.float32) * 0.05).to(cuda_device)
     ref = head_bwd.dc0_reference(tx, w1c0).float()
+    before = head_bwd.dc0.launches, head_bwd.conv9_dx_c0.launches
     for variant in ("flat", "dyfac"):
         got = head_bwd.dc0(tx, w1c0, variant).float()
         assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    # F launches kernel C, counted as F's
+    assert (head_bwd.dc0.launches, head_bwd.conv9_dx_c0.launches) == (before[0] + 2, before[1])

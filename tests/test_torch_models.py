@@ -114,6 +114,15 @@ def test_esrgan_flagship_width_one_block_matches_jax(rng):
     _assert_close(got, m.apply(v, *args))
 
 
+def test_esrgan_reference_default_width_one_block_matches_jax(rng):
+    """GeneratorConfig's widths (nf=64, gc=32), one RRDB, 8x8 LR: the width the
+    bf16 chain takes at 8 x 16 tiles on the card."""
+    m, v, port, args = _esrgan_case(rng, 64, 1, 32, 8, 8)
+    with torch.inference_mode():
+        got = apply_generator("esrgan", port, *(_nchw(a) for a in args))
+    _assert_close(got, m.apply(v, *args))
+
+
 def test_state_dict_from_flax_equals_export_generator_params(rng):
     """Array for array, the JAX package's own export of the same params."""
     for name, nb in (("esrgan", 2), ("srcnn", None)):

@@ -61,6 +61,7 @@ SHAPES = [
     pytest.param(2, 8, 16, 16, 8, id="nf16-gc8-2x8x16"),
     pytest.param(2, 5, 7, 16, 8, id="nf16-gc8-ragged-2x5x7"),
     pytest.param(1, 8, 8, 64, 16, id="nf64-gc16-1x8x8"),
+    pytest.param(1, 8, 8, 16, 32, id="nf16-gc32-1x8x8"),
 ]
 
 
@@ -209,6 +210,52 @@ def test_bf16_tile_fits_the_buffer_and_the_weight_ring():
     assert 26 * 26 * 136 * 2 + rdb._RING_BYTES == 220736 <= rdb._SMEM_LIMIT
 
 
+def test_bf16_packing_at_gc32_is_the_chain_order_forward_and_transposed(rng):
+    """At the reference defaults (nf=64, gc=32) a growth conv's k-step holds
+    two 16-output blocks, [q][lane][register] as above; conv5 reads 12 input
+    groups. Both the forward chain and kernel B2's transposed chain."""
+    _, _, ws = _case(rng, 1, 4, 4, 64, 32)
+    weights = _torch_args(np.zeros((1, 1, 1, 64), np.float32), np.zeros((1, 1, 1, 64), np.float32), ws)[2]
+    packed = rdb.pack_rdb_weights(weights, torch.bfloat16)
+    assert (packed.nf, packed.gc) == (64, 32) and packed.w.numel() == 239616
+    _assert_chain_order(weights, packed.w)
+    _assert_chain_order(rdb.transposed_chain(weights), rdb._pack_chain(weights, transposed=True))
+
+
+def test_bf16_tile_at_gc32_is_8x16_within_the_budget():
+    """gc=32's feature buffer (200 channels a pixel with the pad) does not fit
+    at 16 x 16 (26 x 26 x 200 x 2 = 270,400 bytes) beside the 36,864-byte
+    ring; 8 x 16 does (18 x 26 pixels), within the chain's M-tile limits (16 x
+    24 growth pixels <= 640, 128 last-conv pixels <= 256: two 64-pixel
+    M-blocks, one per warpgroup). 12 x 12 would fit too (22 x 22 pixels) but
+    is not tried: it measured slower on the card. gc=48 takes 8 x 8; gc=64
+    fits no tile and is refused."""
+    assert rdb._RING_BYTES == 36864
+    assert 26 * 26 * 200 * 2 + rdb._RING_BYTES > rdb._SMEM_LIMIT
+    assert rdb._tile(64, 32, torch.bfloat16) == (8, 16)
+    assert 18 * 26 * 200 * 2 + rdb._RING_BYTES == 224064 <= rdb._SMEM_LIMIT
+    assert (8 + 8) * (16 + 8) <= 640 and 8 * 16 == 2 * 64
+    assert (12, 12) not in rdb._TILES[torch.bfloat16]
+    assert rdb._tile(64, 48, torch.bfloat16) == (8, 8)
+    with pytest.raises(ValueError, match="does not fit"):
+        rdb._tile(64, 64, torch.bfloat16)
+
+
+@pytest.mark.parametrize("nf,gc", [(16, 16), (32, 32), (64, 64), (64, 8)], ids=["nf16", "nf32", "gc64", "gc8"])
+def test_bf16_kernel_refuses_widths_the_chain_does_not_take(nf, gc):
+    """The bf16 chain's last conv is wgmma with N = nf = 64 and its growth
+    convs take gc in 16-output blocks up to 48: other widths raise, naming
+    the roadmap, before any launch (the check the wrapper runs on a CUDA
+    tensor, called here on a CPU one)."""
+    x = torch.zeros(1, nf, 4, 4, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.zeros(8, dtype=torch.bfloat16)
+    packed = rdb.PackedWeights(w, torch.zeros(4 * gc + nf), nf, gc, torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        rdb._check(x, None, packed)
+    ok = rdb.PackedWeights(w, torch.zeros(4 * 32 + 64), 64, 32, torch.bfloat16)
+    rdb._check(torch.zeros(1, 64, 4, 4, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last), None, ok)
+
+
 def test_pack_rejects_inconsistent_shapes(rng):
     _, _, ws = _case(rng, 1, 4, 4, 16, 8)
     weights = _torch_args(np.zeros((1, 1, 1, 16), np.float32), np.zeros((1, 1, 1, 16), np.float32), ws)[2]
@@ -234,11 +281,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gc", [16, 32])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_cuda_kernel_matches_plain_version(rng, cuda_device, dtype, tol):
-    """Ragged image with tiles straddling the borders, with and without x0.
-    bf16 tolerance: cuDNN rounds each conv's output to bf16, the kernel rounds once."""
-    x, x0, ws = _case(rng, 2, 45, 91, 64, 16)
+def test_cuda_kernel_matches_plain_version(rng, cuda_device, dtype, tol, gc):
+    """Ragged image with tiles straddling the borders, with and without x0,
+    at the flagship and the reference-default growth widths. bf16
+    tolerance: cuDNN rounds each conv's output to bf16, the kernel rounds once."""
+    x, x0, ws = _case(rng, 2, 45, 91, 64, gc)
     tx, tx0, weights = _torch_args(x, x0, ws)
     tx, tx0 = (t.to(cuda_device, dtype).contiguous(memory_format=torch.channels_last) for t in (tx, tx0))
     weights = [(a.to(cuda_device, dtype), b.to(cuda_device, dtype)) for a, b in weights]

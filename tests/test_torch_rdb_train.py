@@ -94,6 +94,23 @@ def test_bwd_reference_matches_pallas_bwd(rng, res, scales):
         _close(dbs[k], want[2 + 2 * k])
 
 
+def test_bwd_reference_matches_pallas_bwd_at_gc32(rng):
+    """The reference defaults' widths (nf=64, gc=32), one image of 8 x 16, the
+    enclosing-residual scales. (The Pallas backward needs gc <= nf: its
+    gradient stack has max(9 gc, 9 nf) rows and conv5's product reads them all.)"""
+    n, h, w, nf, gc = 1, 8, 16, 64, 32
+    x, _, g, ws = _case(rng, n, h, w, nf, gc)
+    _, feat_t = _rdb_t_fwd_save_raw(nhwc_to_cl(jnp.asarray(x)), h, w, *ws, 1)
+    want = _rdb_t_bwd_raw(feat_t, nhwc_to_cl(jnp.asarray(g)), tuple(jnp.asarray(a) for a in ws), h, w, 1, 0.04, 0.2)
+    feat = _nchw(np.asarray(cl_to_nhwc(feat_t, n, h, w)))
+    dx, dws, dbs = rdb.rdb_bwd_reference(feat, _nchw(g), _torch_weights(ws), 0.04, 0.2)
+    assert feat.shape == (n, nf + 4 * gc, h, w)
+    _close_nhwc(dx, cl_to_nhwc(want[0], n, h, w))
+    for k in range(5):
+        _close_oihw(dws[k], want[1 + 2 * k])
+        _close(dbs[k], want[2 + 2 * k])
+
+
 @pytest.mark.parametrize("res,scales", SCALES)
 def test_fused_rdb_gradients_match_jax_grad_of_the_pallas_rdb(rng, res, scales):
     """FusedRDB (B1 forward, B2 backward; their plain versions here) against
@@ -151,28 +168,52 @@ def test_backward_chain_of_kernel_b2_is_the_input_gradient(rng, res, scales):
     assert (packed.nf, packed.gc) == (NF, GC)
 
 
+def _assert_wgrad_jobs_cover_once(jobs, nf, gc):
+    """Each job's slice (rows co0 .. co0 + 15 and inputs ci0 .. ci0 + cic - 1 of
+    dW_j, every tap) hits each weight of [dW_1 .. dW_5] exactly once, and the
+    growth jobs at ci0 = 0 each growth bias once; returns the weight count."""
+    sizes = [cout * cin * 9 for cout, cin, _, _ in rdb._conv_shapes(nf, gc)]
+    weights_hit = np.zeros(sum(sizes), np.int64)
+    bias_hit = np.zeros(4 * gc, np.int64)
+    for zc, j, co0, cin, woff, ci0, cic in jobs.tolist():
+        assert cin == nf + j * gc and woff == sum(sizes[:j])
+        assert 16 <= cic <= 128 and cic % 16 == 0 and ci0 % 16 == 0 and ci0 + cic <= cin
+        # z = [dz_5, dz_4 .. dz_1]: channel zc belongs to the output gradient of conv j
+        assert (zc < nf) == (j == 4) and zc == (co0 if j == 4 else nf + (3 - j) * gc + co0)
+        dw = weights_hit[woff:woff + sum(sizes[j:j + 1])].reshape(-1, cin, 9)  # OIHW view of dW_j
+        dw[co0:co0 + 16, ci0:ci0 + cic] += 1
+        if j < 4 and ci0 == 0:
+            bias_hit[j * gc + co0: j * gc + co0 + 16] += 1
+    assert (weights_hit == 1).all() and (bias_hit == 1).all()  # the same for every split: the jobs do not vary
+    return sum(sizes)
+
+
 def test_wgrad_plan_covers_every_dw_entry_and_growth_bias_once_per_split():
     """Kernel B2's bf16 dW pass at the flagship widths (nf=64, gc=16) and the
     training shape's 33 splits: in every split the blocks' slices (rows co0 ..
-    co0 + 15 of dW_j, all cin inputs and 9 taps) cover each of the 124,416
-    weights exactly once, and the growth jobs each of the 64 growth biases."""
+    co0 + 15 of dW_j, all cin inputs and 9 taps: every cin <= 128, one job per
+    16-channel group of z) cover each of the 124,416 weights exactly once, and
+    the growth jobs each of the 64 growth biases."""
     nf, gc, splits = 64, 16, 33
     jobs, bounds = rdb.wgrad_plan(192, 32, 32, nf, gc, splits)
-    assert jobs.dtype == bounds.dtype == torch.int32 and jobs.shape == (8, 5) and bounds.shape == (splits + 1,)
-    sizes = [cout * cin * 9 for cout, cin, _, _ in rdb._conv_shapes(nf, gc)]
-    assert sum(sizes) == 124416
-    weights_hit = np.zeros(sum(sizes), np.int64)
-    bias_hit = np.zeros(4 * gc, np.int64)
-    for zc, j, co0, cin, woff in jobs.tolist():
-        assert cin == nf + j * gc and woff == sum(sizes[:j])
-        # z = [dz_5, dz_4 .. dz_1]: channel zc belongs to the output gradient of conv j
-        assert (zc < nf) == (j == 4) and zc == (co0 if j == 4 else nf + (3 - j) * gc + co0)
-        weights_hit[woff + co0 * cin * 9: woff + (co0 + 16) * cin * 9] += 1
-        if j < 4:
-            bias_hit[j * gc + co0: j * gc + co0 + 16] += 1
-    assert (weights_hit == 1).all() and (bias_hit == 1).all()  # the same for every split: the jobs do not vary
+    assert jobs.dtype == bounds.dtype == torch.int32 and jobs.shape == (8, 7) and bounds.shape == (splits + 1,)
+    assert (jobs[:, 5] == 0).all() and (jobs[:, 6] == jobs[:, 3]).all()
+    assert _assert_wgrad_jobs_cover_once(jobs, nf, gc) == 124416
     b = bounds.tolist()
     assert b[0] == 0 and b[-1] == 192 * 4 * 2 and all(lo <= hi for lo, hi in zip(b, b[1:]))
+
+
+def test_wgrad_plan_at_gc32_cuts_the_wide_convs_in_two_by_input_channels():
+    """At the reference defaults (nf=64, gc=32) conv5's 192 inputs and conv4's
+    160 exceed a job's 128 (the kernel's two 55,104-byte stages): each of
+    their 16-output groups becomes two jobs of 96 or 80 inputs, 18 jobs for
+    12 groups of z. The jobs still cover each of the 239,616 weights and 128
+    growth biases exactly once."""
+    nf, gc = 64, 32
+    jobs, _ = rdb.wgrad_plan(192, 32, 32, nf, gc, 14)
+    assert jobs.shape == (18, 7) and int(jobs[:, 6].max()) <= 128
+    assert sorted(set(jobs[:, 6].tolist())) == [64, 80, 96, 128]
+    assert _assert_wgrad_jobs_cover_once(jobs, nf, gc) == 239616
 
 
 @pytest.mark.parametrize("n,h,w,splits", [(3, 29, 45, 33), (2, 8, 16, 5), (1, 7, 5, 3)],
@@ -293,10 +334,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gc", [16, 32])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_cuda_kernels_b1_b2_match_plain_versions(rng, cuda_device, dtype, tol):
-    """A ragged image with tiles across every border, both scale pairs; tolerances as in chip_smoke.py."""
-    x, x0, g, ws = _case(rng, 2, 29, 45, 64, 16)
+def test_cuda_kernels_b1_b2_match_plain_versions(rng, cuda_device, dtype, tol, gc):
+    """A ragged image with tiles across every border, both scale pairs, at
+    the flagship and the reference-default growth widths; tolerances as in chip_smoke.py."""
+    x, x0, g, ws = _case(rng, 2, 29, 45, 64, gc)
     tx, tx0, tg = (_nchw(a).to(cuda_device, dtype).contiguous(memory_format=torch.channels_last) for a in (x, x0, g))
     weights = [(a.to(cuda_device, dtype), b.to(cuda_device, dtype)) for a, b in _torch_weights(ws)]
     for res, (gy, gx) in ((None, (0.2, 1.0)), (tx0, (0.04, 0.2))):
