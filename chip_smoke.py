@@ -2,7 +2,7 @@
 # -*- coding: utf-8 -*-
 """Drive the PyTorch/H100 port's main paths on one card and check them.
 
-Three paths of ``climsr_tpu_torch`` at the flagship width (nf=64, nb=11,
+The paths of ``climsr_tpu_torch`` at the flagship width (nf=64, nb=11,
 gc=16, one output channel, bf16), pre-training and inference at the
 reference defaults (``GeneratorConfig``: nf=64, nb=23, gc=32), and the entry
 points of the three kernels that no model path runs:
@@ -27,6 +27,10 @@ points of the three kernels that no model path runs:
 - pre-training at the reference defaults: the same entry points at nf=64,
   nb=23, gc=32, batch 192. Each step runs B1 and B2 69 times each (the bf16
   chain at 8 x 16 tiles) and C once;
+- training through the entry point a user calls (``cli.train.run`` from the
+  composed ``esrgan_pre_training`` config) on a synthetic WorldClim set: the
+  same kernels as pre-training (B1, B2, C per step) and A per validation or
+  test batch;
 - kernel D (``fused_rdb_nhwc``, the NHWC entry to kernel A), kernel E
   (``fused_hr_tail``, ``csrc/hr_tail.cu``) and kernel F (``dc0``, two
   variants, which launches kernel C, ``csrc/conv9_dx_c0.cu``, through the
@@ -43,8 +47,9 @@ Phases (each raises on failure; nothing is caught):
 3. kernel A against its plain version at the inference shape (16 x 64 x
    128 x 128) and a ragged one (2 x 64 x 45 x 91), with and without the
    folded residual, in bf16 and f32, at gc=16 and gc=32 (and gc=48 on the
-   ragged shape); times (CUDA events, medians) beside the bound at gc=16
-   and gc=32,
+   ragged shape), and at gc=16 on phase 13's eval batches (192 and 64 x 64 x
+   32 x 32); times (CUDA events, medians) beside the bound at gc=16 and
+   gc=32, in bf16,
 4. the generator (seeded weights) on 16 tiles of 32x32 through the kernel
    and through the plain RDB, in bf16 and f32, at the flagship widths (33
    launches per forward) and at the reference defaults (69),
@@ -89,8 +94,26 @@ Phases (each raises on failure; nothing is caught):
    through the kernels and 4 through the plain versions from the same seeded
    init and batch, compared as in phase 7; exactly 69 B1 + 69 B2 + 1 C
    launches per step and no A; ms/step with the card line,
-12. one JSON line with every kernel, the card line, then the device line as
-   the last line.
+12. the kernels A, B1, B2 and D at gc=32: time, plain time, bound and error
+   printed with the card line (the JSON line carries gc=16's),
+13. the training entry point end to end, as a user runs it: a synthetic
+   WorldClim set (``make_synthetic_dataset``, 128/64/64 tiles per stage and
+   temperature variable, its tables handed over without feather files),
+   ``compose(... "experiment=esrgan_pre_training" ...)`` (nf=64, nb=11, gc=16,
+   batch 192, bf16) and ``cli.train.run`` with the datamodule: the tile store
+   on the card, device augmentation, 2 epochs of 2 steps, a validation each
+   epoch, three test sets, checkpoints and the simple profiler's stage
+   table. Exactly 33 B1 + 33 B2 + 1 C per step and 33 A per eval batch; the
+   same run through the plain versions (kernel A too) from the same seed,
+   per-step train/loss and val/rmse compared; the best checkpoint re-validated
+   in a fresh generator and the latest one against the trained model on 16
+   tiles; the trained generator on a validation batch of 192 and of 64
+   through kernel A and through the plain RDB; the trainer's samples/s
+   beside phase 7's bare step,
+14. one JSON line with every kernel (the launches of A, B1, B2 and C are
+   phase 13's, and A's times, bound and error are per launch over phase 13's
+   eval shapes, from phase 3), the card line, then the device line as the
+   last line.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA card). Exits non-zero, printing no
 result, where there is no card or no ``climsr_tpu_torch`` beside it.
@@ -158,6 +181,12 @@ NB_REF, GC_REF = 23, 32  # GeneratorConfig's defaults (with nf=64): the referenc
 TRAIN_N, TRAIN_LR = 192, 32
 STEPS = 6
 REF_STEPS = 4  # phase 11's steps through the kernels and through the plain versions
+# phase 13: synthetic tiles per stage (train, val, test) and temperature variable,
+# 2 steps of 192 an epoch, one validation batch, three test sets
+TRAINER_TILES, TRAINER_EPOCHS = (128, 64, 64), 2
+# kernel A's shapes there: the validation set (3 x 64 tiles) in one batch of
+# 192, each test set in one of 64
+EVAL_SHAPES = ((TRAIN_N, TRAIN_LR, TRAIN_LR), (TRAINER_TILES[2], TRAIN_LR, TRAIN_LR))
 
 
 def card_line() -> str:
@@ -223,9 +252,10 @@ def rdb_bound_ms(x: torch.Tensor, with_x0: bool, nf=NF, gc=GC):
     return bound(2.0 * rdb_macs_per_px(nf, gc) * n * h * w, moved, x.dtype)
 
 
-def phase_kernel(device, gc=GC, shapes=((16, 128, 128), (2, 45, 91))) -> dict:
-    """Kernel A at growth width ``gc`` against rdb_reference; returns the
-    numbers at the inference shape (16 x 64 x 128 x 128, bf16, no x0), if in ``shapes``."""
+def phase_kernel(device, gc=GC, shapes=((16, 128, 128), (2, 45, 91)), timed=((16, 128, 128),)) -> dict:
+    """Kernel A at growth width ``gc`` against rdb_reference at each of
+    ``shapes``; returns {((n, h, w), with x0): numbers} for the bf16 cases of
+    the shapes in ``timed``, which are also timed."""
     from climsr_tpu_torch.ops.rdb import fused_rdb, pack_rdb_weights, rdb_reference
 
     result = {}
@@ -243,16 +273,24 @@ def phase_kernel(device, gc=GC, shapes=((16, 128, 128), (2, 45, 91))) -> dict:
                 print(f"# {tag}: max_abs_err {abs_err:.3e}, relative {rel:.3e} (tol {KERNEL_TOL[dtype]:g})")
                 if not (rel <= KERNEL_TOL[dtype]):
                     raise AssertionError(f"{tag}: kernel disagrees with rdb_reference ({rel:.3e})")
-                if (n, h, w, dtype) == (16, 128, 128, torch.bfloat16):
+                if (n, h, w) in timed and dtype == torch.bfloat16:
                     ms = cuda_ms(lambda: fused_rdb(x, weights, res, packed))
                     plain = cuda_ms(lambda: rdb_reference(x, weights, res))
                     bound, bound_by = rdb_bound_ms(x, res is not None, gc=gc)
                     print(f"# {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                           f"bound {bound:.4f} ms ({bound_by})")
-                    if res is None:
-                        result = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bound,
-                                      bound_by=bound_by)
+                    result[(n, h, w), res is not None] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
+                                                              bound_ms=bound, bound_by=bound_by)
     return result
+
+
+def launch_mean(rows: list) -> dict:
+    """Kernel A's numbers per launch over a path's launches (one row each):
+    the times and bound averaged, the largest error."""
+    keys = ("ms", "plain_ms", "bound_ms")
+    out = {k: sum(r[k] for r in rows) / len(rows) for k in keys}
+    by = [r["bound_by"] for r in rows]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), bound_by=max(set(by), key=by.count), **out)
 
 
 def device_breakdown(run, top: int = 6, what: str = "sweep", under: str = "") -> list:
@@ -953,6 +991,176 @@ def phase_gan(device) -> dict:
     return dict(launches=launches, ms=ms, plain_ms=plain_ms)
 
 
+def metric_rows(path: Path) -> list:
+    """metrics.csv (a header row before each block of rows) -> [{column: float}]."""
+    rows, header = [], None
+    for line in path.read_text().splitlines():
+        cells = line.split(",")
+        if cells[0] == "step":
+            header = cells
+        else:
+            rows.append({k: float(v) for k, v in zip(header, cells)})
+    return rows
+
+
+def phase_trainer(device, step_ms: float, card: str) -> dict:
+    """The training entry point end to end: the composed ``esrgan_pre_training``
+    experiment through ``cli.train.run`` on a synthetic WorldClim set (tiles on
+    the card, device augmentation), through the kernels and then through the
+    plain versions from the same seed; the best checkpoint read back."""
+    from climsr_tpu_torch.cli.train import run
+    from climsr_tpu_torch.config.compose import compose, default_config_dir
+    from climsr_tpu_torch.config.schemas import SuperResolutionDataConfig, from_dict
+    from climsr_tpu_torch.data.datamodule import SuperResolutionDataModule
+    from climsr_tpu_torch.data.pipeline import DataLoader, build_eval_device_store, device_prefetch, gather
+    from climsr_tpu_torch.data.synthetic import make_synthetic_dataset
+    from climsr_tpu_torch.interop.params import load_generator_checkpoint
+    from climsr_tpu_torch.models import apply_generator_batch, create_generator
+    from climsr_tpu_torch.ops.head import fused_hr_tail
+    from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, dc0
+    from climsr_tpu_torch.ops.rdb import fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save, fused_rdb_nhwc
+    from climsr_tpu_torch.training import loop
+    from climsr_tpu_torch.training.checkpoint import CheckpointManager
+    from climsr_tpu_torch.training.tasks.pretrain import make_eval_step
+
+    counters = dict(A=fused_rdb, B1=fused_rdb_fwd_save, B2=fused_rdb_bwd, C=conv9_dx_c0, D=fused_rdb_nhwc,
+                    E=fused_hr_tail, F=dc0)
+    trained = []
+    close = loop.Trainer.close
+
+    def keep_model(self):  # the trained generator, for the checkpoint check below
+        trained.append(self.g_model)
+        close(self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        tables = make_synthetic_dataset(root / "ds", n_tiles_per_stage=TRAINER_TILES, seed=0, write_index=False)
+        data_s = time.perf_counter() - t
+
+        def fit(tag: str):
+            cfg = compose(default_config_dir(), "config", [
+                "experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+                f"trainer.max_epochs={TRAINER_EPOCHS}", "trainer.log_every_n_steps=1", "profiler=simple",
+                "logger=csv", "print_config=false", f"training.output_dir={root / tag}",
+            ])
+            data_cfg = from_dict(SuperResolutionDataConfig, cfg["datamodule"]["cfg"])
+            dm = SuperResolutionDataModule(data_cfg, tables=tables)
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.Trainer.close = keep_model
+            try:
+                hp = run(cfg, datamodule=dm, device=device)
+            finally:
+                loop.Trainer.close = close
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            (run_dir,) = (root / tag / "outputs" / "runs" / "esrgan").iterdir()
+            rows = metric_rows(run_dir / "metrics.csv")
+            train = [r for r in rows if "train/loss" in r]
+            val = [r for r in rows if "val/rmse" in r]
+            print(f"# trainer {tag}: {wall:.3f} s for fit + test, hp_metric {hp:.6f}; train/loss "
+                  f"{['%.6f' % r['train/loss'] for r in train]}, val/rmse {['%.6f' % r['val/rmse'] for r in val]}, "
+                  f"train/samples_per_sec {['%.2f' % r['train/samples_per_sec'] for r in train]}; launches {launches}")
+            for line in (run_dir / "profile_stages.txt").read_text().splitlines():
+                print(f"#   stage {line.strip()}")
+            return cfg, dm, run_dir, train, val, launches, wall
+
+        cfg, dm, run_dir, train, val, launches, wall = fit("kernels")
+        cfg_ = cfg["datamodule"]["cfg"]
+        n_train, bs, vbs = 3 * TRAINER_TILES[0], cfg_["batch_size"], cfg_["validation_batch_size"]
+        steps = TRAINER_EPOCHS * (n_train // bs)
+        def sizes(n):  # the eval batches of a set of n tiles (a padded tail runs on its valid prefix)
+            return [min(vbs, n - i) for i in range(0, n, vbs)]
+
+        eval_sizes = TRAINER_EPOCHS * sizes(3 * TRAINER_TILES[1]) + 3 * sizes(TRAINER_TILES[2])
+        eval_batches = len(eval_sizes)
+        if {(n, TRAIN_LR, TRAIN_LR) for n in eval_sizes} != set(EVAL_SHAPES):
+            raise AssertionError(f"trainer: eval batches {eval_sizes} are not kernel A's timed shapes {EVAL_SHAPES}")
+        gen = cfg["generator"]
+        nb = gen["nb"]
+        expected = dict(A=3 * nb * eval_batches, B1=3 * nb * steps, B2=3 * nb * steps, C=steps, D=0, E=0, F=0)
+        print(f"# trainer launches: {steps} steps x (3 x nb={nb} B1 + 3 x nb B2 + 1 C), {eval_batches} eval batches "
+              f"({TRAINER_EPOCHS} val + 3 test) x 3 x nb A = {expected}; counted {launches}")
+        if launches != expected or len(train) != steps or len(val) != TRAINER_EPOCHS:
+            raise AssertionError(f"trainer: expected launches {expected} over {steps} logged steps and "
+                                 f"{TRAINER_EPOCHS} validations, counted {launches}, {len(train)}, {len(val)}")
+        if (gen["nf"], nb, gen["gc"], bs, cfg["trainer"]["precision"]) != (NF, NB, GC, TRAIN_N, "bf16"):
+            raise AssertionError(f"trainer: the composed config is not the flagship at batch {TRAIN_N}: {gen}")
+
+        with plain_rdb(), plain_training():
+            *_, plain_train, plain_val, _, plain_wall = fit("plain")
+        pairs = [(a["train/loss"], b["train/loss"]) for a, b in zip(train, plain_train)]
+        pairs += [(a["val/rmse"], b["val/rmse"]) for a, b in zip(val, plain_val)]
+        traj_err = max(abs(a - b) / abs(b) for a, b in pairs)
+        print(f"# trainer kernels vs plain: train/loss and val/rmse within {traj_err:.2e} (relative; tol "
+              f"{TRAJECTORY_TOL:g})")
+        if not traj_err <= TRAJECTORY_TOL or not all(np.isfinite(a) for a, _ in pairs):
+            raise AssertionError("trainer through the kernels disagrees with the plain versions")
+
+        # the best checkpoint into a fresh generator: its validation reproduces
+        # the logged val/rmse; the latest gives the trained model's output
+        mgr = CheckpointManager(run_dir / "checkpoints", save_top_k=-1)
+        kw = dict(dtype=torch.bfloat16, device=device, train=True, in_channels=3, out_channels=1, nf=gen["nf"],
+                  nb=nb, gc=gen["gc"])
+        store = build_eval_device_store(dm.val_dataset, device=device)
+        n_val = len(dm.val_dataset)
+        batches = [gather(store, torch.arange(i, min(i + vbs, n_val), device=device)) for i in range(0, n_val, vbs)]
+        fresh = create_generator("esrgan", **kw)
+        fresh.load_state_dict(load_generator_checkpoint(mgr.path(mgr.best_step)), strict=True)
+        eval_step = make_eval_step(fresh, "esrgan", device=device)
+        # the Trainer's epoch mean: batch means weighted by batch size
+        best_rmse = sum(eval_step(b)["val/rmse"].item() * len(b["hr"]) for b in batches) / n_val
+        batch = batches[0]
+        logged = next(r["val/rmse"] for r in val if r["step"] == mgr.best_step)
+        latest = create_generator("esrgan", **kw)
+        latest.load_state_dict(load_generator_checkpoint(mgr.path(mgr.latest_step)), strict=True)
+        tiles = {k: v[:16] for k, v in batch.items()}
+        with torch.inference_mode():
+            out = [apply_generator_batch("esrgan", m, tiles, torch.bfloat16) for m in (latest, trained[0])]
+        ckpt_err = (out[0] - out[1]).abs().max().item()
+        print(f"# trainer checkpoints: best step {mgr.best_step} re-validated val/rmse {best_rmse:.6f} against "
+              f"logged {logged:.6f}; latest step {mgr.latest_step} on 16 tiles: max |loaded - trained| {ckpt_err:.3e}")
+        if abs(best_rmse - logged) > 1e-5 * abs(logged) or ckpt_err != 0.0:
+            raise AssertionError("trainer: a checkpoint read back does not give the trained model's numbers")
+
+        # kernel A in the trained generator on this path's eval inputs (a
+        # validation batch of 192, and of 64 as a test set's), against the
+        # plain RDB on the same inputs
+        for n in sorted(set(eval_sizes)):
+            tiles = {k: v[:n] for k, v in batch.items()}
+            with torch.inference_mode():
+                got = apply_generator_batch("esrgan", trained[0], tiles, torch.bfloat16)
+                with plain_rdb():
+                    ref = apply_generator_batch("esrgan", trained[0], tiles, torch.bfloat16)
+            rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+            print(f"# trainer's generator on {n} val tiles, kernel A against the plain RDB: relative err {rel:.3e} "
+                  f"(tol {GENERATOR_TOL[torch.bfloat16]:g})")
+            if not rel <= GENERATOR_TOL[torch.bfloat16] or not torch.isfinite(got).all():
+                raise AssertionError(f"trainer: the trained generator through kernel A disagrees with the plain RDB")
+
+        # the streaming path (no device store): the val loader through pinned
+        # memory and a side stream gives the store's batches bit for bit
+        loader = DataLoader(dm.val_dataset, vbs, shuffle=False, drop_last=False, pad_last=True, num_workers=8)
+        n = 0
+        for got, want in zip(device_prefetch(iter(loader), device), batches):
+            nv = len(want["hr"])
+            if got["hr"].device != want["hr"].device or not all(torch.equal(got[k][:nv], v) for k, v in want.items()):
+                raise AssertionError("device_prefetch: a batch differs from the device store's")
+            n += 1
+        print(f"# device_prefetch: {n} val batch(es) through pinned host memory and a side stream equal the "
+              f"device store's, bit for bit")
+
+    sps = train[-1]["train/samples_per_sec"]
+    print(f"# trainer samples/s: {sps:.2f} (train/samples_per_sec at step {steps}, epoch {TRAINER_EPOCHS}) against "
+          f"{TRAIN_N / step_ms * 1e3:.2f} for phase 7's bare step at batch {TRAIN_N}; fit + test {wall:.3f} s "
+          f"({plain_wall:.3f} s plain); synthetic set {data_s:.3f} s ({card})")
+    return dict(launches=launches, samples_per_sec=sps, eval_sizes=eval_sizes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the GPU", file=sys.stderr)
@@ -984,8 +1192,9 @@ def main() -> int:
                 print(f"#   ptxas {name}: {line.strip()}")
 
     # 3. kernel A against its plain version, at the flagship and the reference-default growth widths
-    kernel = phase_kernel(device)
-    kernel_ref = phase_kernel(device, gc=GC_REF)
+    kernel_a = phase_kernel(device, shapes=((16, 128, 128), (2, 45, 91), *EVAL_SHAPES),
+                            timed=((16, 128, 128), *EVAL_SHAPES))
+    kernel_ref = phase_kernel(device, gc=GC_REF)[(16, 128, 128), False]
     phase_kernel(device, gc=48, shapes=((2, 45, 91),))
 
     # 4. the generator at the flagship widths and at the reference defaults
@@ -1034,24 +1243,36 @@ def main() -> int:
     print(f"# pre-training step nf={NF} nb={NB_REF} gc={GC_REF}, batch {TRAIN_N}: {pre_ref['ms']:.3f} ms/step "
           f"({TRAIN_N / pre_ref['ms'] * 1e3:.2f} samples/s) through the kernels, {pre_ref['plain_ms']:.3f} ms/step "
           f"({TRAIN_N / pre_ref['plain_ms'] * 1e3:.2f} samples/s) through the plain versions ({card})")
-    # the kernels at gc=32, beside gc=16's in the JSON line below
+    # 12. the kernels at gc=32, beside gc=16's in the JSON line below
     for name, r in (("fused_rdb", kernel_ref), ("fused_rdb_fwd_save", train_kernels_ref["fused_rdb_fwd_save"]),
                     ("fused_rdb_bwd", train_kernels_ref["fused_rdb_bwd"]), ("fused_rdb_nhwc", rdb_nhwc_ref)):
         print(f"# {name} at gc={GC_REF}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e} ({card})")
 
-    # 12. results
+    # 13. the training entry point: composed config, data path, Trainer, checkpoints
+    trainer = phase_trainer(device, pretrain["ms"], card)
+
+    # 14. results
+    # A, B1, B2 and C: their launches on this slice's main path, the training
+    # entry point (phase 13); D, E, F run on no model path. A's numbers are per
+    # launch over phase 13's: each eval batch of n tiles runs A on n x 64 x 32 x 32
+    # twice without x0 and once with it in each of nb blocks
+    kernel = launch_mean([kernel_a[(n, TRAIN_LR, TRAIN_LR), x0] for n in trainer["eval_sizes"]
+                          for x0 in (False, False, True)])
+    print(f"# fused_rdb per launch over phase 13's eval batches {trainer['eval_sizes']}: {kernel['ms']:.4f} ms, "
+          f"plain {kernel['plain_ms']:.4f} ms, bound {kernel['bound_ms']:.4f} ms ({kernel['bound_by']}), "
+          f"max_abs_err {kernel['max_abs_err']:.3e} ({card})")
     kernels = [dict(name="fused_rdb", route="cuda", source="climsr_tpu_torch/csrc/rdb_fwd.cu",
-                    replaces="climsr_tpu/ops/pallas/rdb.py:190", launches=globe["launches"], library_ms=None,
+                    replaces="climsr_tpu/ops/pallas/rdb.py:190", launches=trainer["launches"]["A"], library_ms=None,
                     **kernel)]
-    for name, source, replaces in (
-        ("fused_rdb_fwd_save", "climsr_tpu_torch/csrc/rdb_fwd.cu", "climsr_tpu/ops/pallas/rdb.py:315"),
-        ("fused_rdb_bwd", "climsr_tpu_torch/csrc/rdb_bwd.cu", "climsr_tpu/ops/pallas/rdb.py:432"),
-        ("conv9_dx_c0", "climsr_tpu_torch/csrc/conv9_dx_c0.cu", "climsr_tpu/ops/pallas/head_bwd.py:53"),
+    for name, label, source, replaces in (
+        ("fused_rdb_fwd_save", "B1", "climsr_tpu_torch/csrc/rdb_fwd.cu", "climsr_tpu/ops/pallas/rdb.py:315"),
+        ("fused_rdb_bwd", "B2", "climsr_tpu_torch/csrc/rdb_bwd.cu", "climsr_tpu/ops/pallas/rdb.py:432"),
+        ("conv9_dx_c0", "C", "climsr_tpu_torch/csrc/conv9_dx_c0.cu", "climsr_tpu/ops/pallas/head_bwd.py:53"),
     ):
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=pretrain["launches"][name], **train_kernels[name]))
-    # D, E, F run on no model path: their launches are their own paths' (phases 8, 9)
+                            launches=trainer["launches"][label], **train_kernels[name]))
+    # D, E, F: their launches are their own paths' (phases 8, 9)
     kernels.append(dict(name="fused_rdb_nhwc", route="cuda", source="climsr_tpu_torch/csrc/rdb_fwd.cu",
                         replaces="climsr_tpu/ops/pallas/rdb.py:83", launches=own["fused_rdb_nhwc"], **rdb_nhwc))
     kernels.append(dict(name="fused_hr_tail", route="cuda", source="climsr_tpu_torch/csrc/hr_tail.cu",

@@ -1,2 +1,3 @@
 # -*- coding: utf-8 -*-
-"""Config schemas of the port (the rest of ``climsr_tpu.config`` comes with the CLI slice)."""
+"""Config of the port: the composer over ``conf/`` (read without PyYAML), the
+schemas and the instantiator."""

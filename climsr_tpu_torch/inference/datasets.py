@@ -15,8 +15,9 @@ Parity: reference ``climsr/data/sr/cruts_inference_dataset.py`` and
 Host-side numpy; batches stack to NHWC for the device. The port of
 ``climsr_tpu.inference.datasets``: cv2's nearest resize is
 :func:`climsr_tpu_torch.ops.resize.resize_nearest` (the same index rule), and
-the stats tables are pandas DataFrames the caller passes in, so this module
-imports neither cv2 nor pandas.
+the stats tables are :class:`~climsr_tpu_torch.data.tables.Table` s (a pandas
+DataFrame passed in is converted where it enters), so this module imports
+neither cv2 nor pandas.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 
 import climsr_tpu_torch.consts as consts
 from climsr_tpu_torch.data.normalization import MinMaxScaler, StandardScaler
+from climsr_tpu_torch.data.tables import as_table
 from climsr_tpu_torch.io.geotiff import read_raster
 from climsr_tpu_torch.io.netcdf import read_climate_series
 from climsr_tpu_torch.ops.resize import resize_nearest
@@ -63,7 +65,7 @@ class CRUTSInferenceDataset:
         scaling_factor: int = 4,
         normalize: bool = True,
         standardize: bool = False,
-        standardize_stats: Optional[Any] = None,  # pandas DataFrame
+        standardize_stats: Optional[Any] = None,  # Table or pandas DataFrame
         normalize_range: Tuple[float, float] = (-1.0, 1.0),
         use_elevation: bool = True,
         use_mask: bool = True,
@@ -79,16 +81,14 @@ class CRUTSInferenceDataset:
         self.land_mask_file = land_mask_file
 
         if standardize:
-            stats = standardize_stats.set_index(D.variable)
-            self.scaler = StandardScaler(
-                mean=float(stats.at[self.variable, S.mean]), std=float(stats.at[self.variable, S.std])
-            )
-            self.elevation_scaler = StandardScaler(
-                mean=float(stats.at[consts.cruts.elev, S.mean]) if consts.cruts.elev in stats.index
-                else float(stats.at[consts.world_clim.elev, S.mean]),
-                std=float(stats.at[consts.cruts.elev, S.std]) if consts.cruts.elev in stats.index
-                else float(stats.at[consts.world_clim.elev, S.std]),
-            )
+            stats = as_table(standardize_stats)
+
+            def at(key, column):
+                return float(stats.lookup(D.variable, key, column))
+
+            elev = consts.cruts.elev if consts.cruts.elev in set(stats[D.variable]) else consts.world_clim.elev
+            self.scaler = StandardScaler(mean=at(self.variable, S.mean), std=at(self.variable, S.std))
+            self.elevation_scaler = StandardScaler(mean=at(elev, S.mean), std=at(elev, S.std))
         else:
             self.scaler = MinMaxScaler(feature_range=normalize_range)
             self.elevation_scaler = MinMaxScaler(feature_range=normalize_range)
@@ -167,7 +167,7 @@ class GeoTiffInferenceDataset:
     def __init__(
         self,
         tiff_dir: str,
-        tiff_df: Any,  # pandas DataFrame
+        tiff_df: Any,  # Table or pandas DataFrame
         elevation_file: str,
         land_mask_file: str,
         generator_type: str,
@@ -176,14 +176,14 @@ class GeoTiffInferenceDataset:
         scaling_factor: int = 4,
         normalize: bool = True,
         standardize: bool = False,
-        standardize_stats: Optional[Any] = None,  # pandas DataFrame
+        standardize_stats: Optional[Any] = None,  # Table or pandas DataFrame
         normalize_range: Tuple[float, float] = (-1.0, 1.0),
         use_elevation: bool = True,
         use_mask: bool = True,
         use_global_min_max: bool = True,
     ):
         self.tiffs = sorted(glob(f"{tiff_dir}/*.tif"))
-        self.tiff_df = tiff_df.set_index(D.filename, drop=True)
+        self.tiff_df = as_table(tiff_df)
         self.generator_type = generator_type
         self.variable = variable
         self.hr_size = hr_size
@@ -197,12 +197,15 @@ class GeoTiffInferenceDataset:
         self.land_mask_file = land_mask_file
 
         if standardize:
-            stats = standardize_stats.set_index(D.variable)
+            stats = as_table(standardize_stats)
+
+            def at(key, column):
+                return float(stats.lookup(D.variable, key, column))
+
             key = D.world_clim_to_cruts_mapping.get(variable, variable)
-            self.scaler = StandardScaler(mean=float(stats.at[key, S.mean]), std=float(stats.at[key, S.std]))
+            self.scaler = StandardScaler(mean=at(key, S.mean), std=at(key, S.std))
             self.elevation_scaler = StandardScaler(
-                mean=float(stats.at[consts.world_clim.elev, S.mean]),
-                std=float(stats.at[consts.world_clim.elev, S.std]),
+                mean=at(consts.world_clim.elev, S.mean), std=at(consts.world_clim.elev, S.std)
             )
         else:
             self.scaler = MinMaxScaler(feature_range=normalize_range)
@@ -238,9 +241,9 @@ class GeoTiffInferenceDataset:
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         file_path = self.tiffs[index]
         file_name = os.path.basename(file_path)
-        row = self.tiff_df.loc[file_name]
-        vmin = float(row[S.global_min] if self.use_global_min_max else row[S.min])
-        vmax = float(row[S.global_max] if self.use_global_min_max else row[S.max])
+        col = (S.global_min, S.global_max) if self.use_global_min_max else (S.min, S.max)
+        vmin = float(self.tiff_df.lookup(D.filename, file_name, col[0]))
+        vmax = float(self.tiff_df.lookup(D.filename, file_name, col[1]))
 
         original = np.flipud(read_raster(file_path).astype(np.float32)).copy()
         img_lr = original.copy()

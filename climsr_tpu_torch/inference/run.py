@@ -28,7 +28,9 @@ import torch
 from torch import nn
 
 import climsr_tpu_torch.consts as consts
+from climsr_tpu_torch.config.schemas import READBACKS
 from climsr_tpu_torch.data.normalization import MinMaxScaler, StandardScaler
+from climsr_tpu_torch.data.tables import read_feather
 from climsr_tpu_torch.device import DeviceLike, resolve_device
 from climsr_tpu_torch.inference.datasets import CRUTSInferenceDataset, GeoTiffInferenceDataset
 from climsr_tpu_torch.inference.tiled import TiledSR, whole_frame_sr
@@ -42,7 +44,6 @@ B = consts.batch_items
 D = consts.datasets_and_preprocessing
 logger = logging.getLogger(__name__)
 
-READBACKS = ("pack12", "f16")
 
 
 def load_generator(
@@ -288,23 +289,22 @@ def _write_outputs(sr_frames, metas, scaler, mask_np, mask_profile, out_dir, wri
 
 def run_inference(cfg, cruts_variables: List[str], generator_kwargs: Optional[dict] = None,
                   device: DeviceLike = None) -> None:
-    """Inference for each CRU-TS variable. ``cfg`` carries the fields of the
-    JAX package's ``InferenceConfig`` (pretrained_model, generator_type,
-    min_max_lookup, ds_path, ...) as attributes."""
-    import pandas as pd  # feather lookups only
-
+    """Inference for each CRU-TS variable. ``cfg`` carries the fields of
+    ``InferenceConfig`` (pretrained_model, generator_type, min_max_lookup,
+    ds_path, ...) as attributes. The feather lookups are read with
+    ``read_feather`` (which needs pandas)."""
     dev = resolve_device(device)
     model = load_generator(cfg.pretrained_model, cfg.generator_type, generator_kwargs, device=dev)
-    min_max_all = pd.read_feather(cfg.min_max_lookup)
-    zscore = None if cfg.normalize else pd.read_feather(cfg.zscore_lookup)
+    min_max_all = read_feather(cfg.min_max_lookup)
+    zscore = None if cfg.normalize else read_feather(cfg.zscore_lookup)
     for var in cruts_variables:
         out_path = os.path.join(cfg.inference_out_path, var)
         os.makedirs(out_path, exist_ok=True)
         logger.info("Running inference for variable: %s with model: %s", var, cfg.pretrained_model)
 
-        min_max_lookup = min_max_all[
+        min_max_lookup = min_max_all.filter(
             (min_max_all[D.dataset] == "cru-ts") & (min_max_all[D.variable] == var)
-        ]
+        )
         common = dict(
             elevation_file=cfg.elevation_file,
             land_mask_file=cfg.land_mask_file,

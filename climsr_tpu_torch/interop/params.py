@@ -133,7 +133,8 @@ def _read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
     if p.is_dir():
         raise NotImplementedError(
             f"{p} is a directory (an orbax checkpoint); the port reads PyTorch checkpoint files only. "
-            "Reading orbax checkpoints is a later item (ROADMAP.md, queue 1: trainer and checkpoints)"
+            "Reading orbax checkpoints needs tensorstore and JAX and is left out of the port "
+            "(ROADMAP.md, queue 1, item 12); carry JAX params over with state_dict_from_flax"
         )
     try:
         ckpt = torch.load(p, map_location="cpu", weights_only=True)

@@ -1,3 +1,4 @@
 # -*- coding: utf-8 -*-
-"""Training of the port: schedules, optimizers, train states and the tasks
-(pixel-loss pre-training, the relativistic GAN fine-tune)."""
+"""Training of the port: schedules, optimizers, train states, the tasks
+(pixel-loss pre-training, the relativistic GAN fine-tune), the Trainer, its
+checkpoints and callbacks."""

@@ -155,6 +155,21 @@ class ScheduledOptimizer:
         self.inner.step()
         self.updates += 1
 
+    def state_dict(self) -> dict:
+        """The inner torch optimizer's state dict, with the chain's counters
+        (updates, accumulation step and running mean) under ``"chain"``."""
+        out = self.inner.state_dict()
+        out["chain"] = {"updates": self.updates, "mini_step": self.mini_step, "acc": self.acc}
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        chain = state.pop("chain")
+        self.inner.load_state_dict(state)
+        self.updates, self.mini_step = int(chain["updates"]), int(chain["mini_step"])
+        acc = chain["acc"]
+        self.acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self.params)]
+
     def _set_hyperparameters(self) -> None:
         i, spec = self.updates, self.spec
         for group in self.inner.param_groups:

@@ -22,8 +22,9 @@ parameters; losses are float32. On the card the generator runs kernels B1
 and B2 (33 each per step at nb=11) and the fusion head's kernel C once per
 step; :func:`make_gan_val_losses`, under ``torch.inference_mode``, runs kernel
 A. Batches are NCHW dicts on any device, moved to the models' device.
-Augmentation, the device-resident store, ZeRO and spatial sharding raise,
-naming their ``ROADMAP.md`` items, as the pre-training step does.
+``augment`` and ``store`` work as in the pre-training step
+(:func:`~climsr_tpu_torch.training.tasks.pretrain.prepare_batch`); ZeRO and
+spatial sharding raise, naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import climsr_tpu_torch.consts as consts
 from climsr_tpu_torch.device import DeviceLike
 from climsr_tpu_torch.losses.gan import relativistic_d_loss, relativistic_g_loss
 from climsr_tpu_torch.models import apply_generator_batch
-from climsr_tpu_torch.training.tasks.pretrain import check_device, refuse_later_options
+from climsr_tpu_torch.training.tasks.pretrain import check_device, prepare_batch, refuse_later_options
 from climsr_tpu_torch.training.train_state import GANTrainState
 
 B = consts.batch_items
@@ -59,6 +60,7 @@ def make_gan_step(
     perceptual_interval: int = 1,
     compute_dtype: torch.dtype = torch.bfloat16,
     augment: Optional[Dict] = None,
+    augment_seed: int = 0,
     store: Optional[Dict] = None,
     zero: Optional[Dict] = None,
     spatial: Optional[Dict] = None,
@@ -69,11 +71,12 @@ def make_gan_step(
     Metrics: ``train/loss_G``, ``train/loss_D``, ``train/pixel_level_loss``,
     ``train/adversarial_loss``, ``train/perceptual_loss``. ``device``
     (``None`` means ``cuda``) is where both models must be."""
-    refuse_later_options("make_gan_step", augment=augment, store=store, zero=zero, spatial=spatial)
+    refuse_later_options("make_gan_step", zero=zero, spatial=spatial)
     check_device(g_model, device)
     check_device(d_model, device)
 
     def step(state: GANTrainState, batch: Dict) -> Tuple[GANTrainState, Metrics]:
+        batch = prepare_batch(batch, state.step, generator_type, augment, augment_seed, store)
         d = state.d_model.train()
         # ---- generator update: D's parameters take no gradient
         state.g_optimizer.zero_grad()

@@ -17,9 +17,12 @@ and B2 and the fusion head's input gradient kernel C; the eval step, under
 ``hr``, ``elevation``, ``mask``; for eval also ``min``, ``max``,
 ``original_data``) on any device; they are moved to the model's device.
 
-The JAX step's device-side augmentation, device-resident tile store, ZeRO
-partitioning and spatial sharding are later items of ``ROADMAP.md`` (queue 1,
-items 4 and 8) and raise here.
+As in the JAX step, ``store`` makes the batch an index vector gathered from a
+device-resident tile store, and ``augment`` flips, rotates and assembles the
+LR input inside the step (``ops/augment.py``), with draws seeded from
+``(augment_seed, state.step)`` (:func:`prepare_batch`). ZeRO partitioning and
+spatial sharding are a later item of ``ROADMAP.md`` (queue 1, item 8) and
+raise here.
 """
 from __future__ import annotations
 
@@ -30,16 +33,16 @@ from torch import nn
 
 import climsr_tpu_torch.consts as consts
 from climsr_tpu_torch.data.normalization import minmax_denormalize, zscore_denormalize
+from climsr_tpu_torch.data.pipeline import gather
 from climsr_tpu_torch.device import DeviceLike, resolve_device
 from climsr_tpu_torch.metrics.suite import compute_metric_suite
 from climsr_tpu_torch.models import apply_generator_batch
+from climsr_tpu_torch.ops.augment import augment_and_assemble, step_generator
 from climsr_tpu_torch.training.train_state import TrainState
 
 B = consts.batch_items
 
 _LATER = {
-    "augment": "ROADMAP.md, queue 1, item 4: device-side data path (ops/augment.py)",
-    "store": "ROADMAP.md, queue 1, item 4: device-side data path (device-resident tile store)",
     "zero": "ROADMAP.md, queue 1, item 8: multi-GPU (DDP / ZeRO)",
     "spatial": "ROADMAP.md, queue 1, item 8: multi-GPU (H-sharded halo exchange)",
 }
@@ -57,6 +60,20 @@ def refuse_later_options(step_name: str, **options) -> None:
             raise NotImplementedError(f"{step_name}({name}=...) is not ported yet: {_LATER[name]}")
 
 
+def prepare_batch(batch, step: int, generator_type: str, augment: Optional[Dict], augment_seed: int,
+                  store: Optional[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The JAX step's first lines (``climsr_tpu/training/tasks/pretrain.py:102-109``):
+    gather the index batch from ``store``, then augment and assemble with
+    draws from ``(augment_seed, step)`` on the batch's device."""
+    if store is not None:
+        where = next(iter(store.values())).device
+        batch = gather(store, torch.as_tensor(batch, dtype=torch.int64).to(where))
+    if augment is not None:
+        gen = step_generator(augment_seed, step, batch[B.hr].device)
+        batch = augment_and_assemble(batch, gen, generator_type, **augment)
+    return batch
+
+
 def check_device(model: nn.Module, device: DeviceLike) -> None:
     """``device=None`` means ``cuda``: raises without a card, or where the model is elsewhere."""
     dev = resolve_device(device)
@@ -70,6 +87,7 @@ def make_pretrain_step(
     generator_type: str,
     compute_dtype: torch.dtype = torch.bfloat16,
     augment: Optional[Dict] = None,
+    augment_seed: int = 0,
     store: Optional[Dict] = None,
     zero: Optional[Dict] = None,
     spatial: Optional[Dict] = None,
@@ -78,12 +96,16 @@ def make_pretrain_step(
     """``step(state, batch) -> (state, {"train/loss", "grad_norm"})``: one
     forward, backward and optimizer update of ``state.model``, in place (the
     state carries the optimizer: ``TrainState.create(model, tx)``).
-    ``device`` (``None`` means ``cuda``) is where the model must be."""
-    refuse_later_options("make_pretrain_step", augment=augment, store=store, zero=zero, spatial=spatial)
+    ``augment`` (``augment_and_assemble``'s keyword arguments) takes raw
+    {hr, elevation, mask} tiles; ``store`` ({hr, elevation, mask} tensors on
+    the device) takes an index vector for ``batch``. ``device`` (``None``
+    means ``cuda``) is where the model must be."""
+    refuse_later_options("make_pretrain_step", zero=zero, spatial=spatial)
     check_device(model, device)
     loss_fn = pixel_loss_fn(generator_type)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        batch = prepare_batch(batch, state.step, generator_type, augment, augment_seed, store)
         state.optimizer.zero_grad()
         sr = apply_generator_batch(generator_type, state.model, batch, compute_dtype)
         hr = batch[B.hr].to(device=sr.device, dtype=torch.float32)

@@ -302,7 +302,7 @@ def test_gan_val_losses_match_jax(gan_case):
 def test_gan_step_refuses_options_of_later_slices():
     g = create_generator("esrgan", device="cpu", train=True, nf=16, nb=1, gc=8, out_channels=1)
     d = create_discriminator("esrgan", device="cpu", hr_size=HR, **D_KW)
-    for option in ("augment", "store", "zero", "spatial"):
+    for option in ("zero", "spatial"):  # augment and store are ported (test_torch_data.py)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_gan_step(g, d, "esrgan", device="cpu", **{option: {}})
     with pytest.raises(ValueError):

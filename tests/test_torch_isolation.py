@@ -23,19 +23,24 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages([str(PORT)], prefix="clim
 def test_every_module_imports_without_jax_or_the_jax_package():
     """In a fresh interpreter: import every port module (and chip_smoke.py);
     no jax, flax or climsr_tpu module is loaded, and none of the packages the
-    GPU machine may lack (cv2, pandas, yaml, PIL)."""
+    GPU machine may lack (cv2, pandas, yaml, PIL, matplotlib)."""
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for name in {MODULES + ['chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'climsr_tpu', 'cv2', 'pandas', 'yaml', 'PIL'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'climsr_tpu', 'cv2', 'pandas', 'yaml', 'PIL', 'matplotlib'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 25
+    for name in ("config.compose", "config.yaml_subset", "config.instantiator", "data.tables", "data.synthetic",
+                 "data.climate_dataset", "data.datamodule", "data.pipeline", "ops.augment", "utils.core",
+                 "utils.logging", "training.checkpoint", "training.callbacks", "training.loop", "cli.train",
+                 "cli.inference"):
+        assert f"climsr_tpu_torch.{name}" in MODULES
 
 
 def test_sources_import_no_jax_and_nothing_of_the_jax_package():
@@ -48,7 +53,10 @@ def test_sources_import_no_jax_and_nothing_of_the_jax_package():
 def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     """``device=None`` means CUDA: without a card every entry point raises
     instead of running on the CPU."""
-    from climsr_tpu_torch.config.schemas import OptimizerConfig
+    from climsr_tpu_torch.cli.train import main as train_main
+    from climsr_tpu_torch.config.schemas import OptimizerConfig, TrainerConfig
+    from climsr_tpu_torch.data.pipeline import build_device_store, device_prefetch
+    from climsr_tpu_torch.training.loop import Trainer
     from climsr_tpu_torch.inference.run import inference_on_full_images, load_generator
     from climsr_tpu_torch.inference.tiled import TiledSR, whole_frame_sr
     from climsr_tpu_torch.losses.perceptual import build_perceptual_loss
@@ -74,6 +82,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
         lambda: make_gan_step(cpu_model, cpu_d, "esrgan"),
         lambda: make_gan_val_losses(cpu_model, cpu_d, "esrgan"),
         lambda: build_perceptual_loss(cutoff="conv1_2"),
+        lambda: Trainer(None, None, None, TrainerConfig(), None),
+        lambda: train_main(["experiment=esrgan_pre_training"]),
+        lambda: build_device_store(None),
+        lambda: next(device_prefetch(iter([{"hr": np.zeros((1, 4, 4, 1), np.float32)}]))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -188,7 +188,7 @@ def test_train_model_keeps_f32_params_and_computes_in_bf16(rng):
 
 def test_steps_refuse_options_of_later_slices():
     model = create_generator("esrgan", device="cpu", train=True, nf=16, nb=1, gc=8, out_channels=1)
-    for option in ("augment", "store", "zero", "spatial"):
+    for option in ("zero", "spatial"):  # augment and store are ported (test_torch_data.py)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_pretrain_step(model, "esrgan", device="cpu", **{option: {}})
     with pytest.raises(ValueError):
