@@ -31,6 +31,14 @@ points of the three kernels that no model path runs:
   composed ``esrgan_pre_training`` config) on a synthetic WorldClim set: the
   same kernels as pre-training (B1, B2, C per step) and A per validation or
   test batch;
+- the other generator families at their published widths (RCAN 10 x 20 x 64,
+  DRLN 64, RFB-ESRGAN 16 RRDB + 8 RRFDB) and the RFB-ESRGAN discriminator:
+  RCAN pre-trained, fine-tuned at europe extent and run over europe-extent
+  GeoTIFF months, DRLN and RFB-ESRGAN pre-trained, all through the entry
+  points; none of them runs a TPU kernel's counterpart (their convs are
+  library convs, as in the JAX package). The ESRGAN GAN fine-tune preset
+  pairs the flagship ESRGAN with the RFB discriminator: B1, B2 and C in each
+  step, A in each generator forward of validation and test;
 - kernel D (``fused_rdb_nhwc``, the NHWC entry to kernel A), kernel E
   (``fused_hr_tail``, ``csrc/hr_tail.cu``) and kernel F (``dc0``, two
   variants, which launches kernel C, ``csrc/conv9_dx_c0.cu``, through the
@@ -110,6 +118,43 @@ Phases (each raises on failure; nothing is caught):
    tiles; the trained generator on a validation batch of 192 and of 64
    through kernel A and through the plain RDB; the trainer's samples/s
    beside phase 7's bare step,
+A. each family's modules at full width on 4 seeded tiles (LR 32x32; the
+   discriminator on HR 128, in train mode, its logits): the card in f32 (TF32
+   off) against the same module and weights on the CPU, and bf16 against f32
+   on the card; each one's forward ms at batch 192 in bf16,
+B. RCAN through the entry points: ``compose(... "experiment=rcan_pre_training"
+   ...)`` and ``cli.train.run`` on phase 13's synthetic set (batch 96, 2
+   epochs of 4 steps, validation, three test sets, checkpoints), then
+   ``experiment=rcan_fine_tuning`` with ``training.model_weights`` at its
+   checkpoints on a europe-extent synthetic set (HR 452, LR 113, 11/4/4
+   frames per stage and variable, batch 16, 2 epochs of 2 steps; the graft
+   copies every tensor), then the fine-tuned model from its best checkpoint
+   (``load_generator``) over 8 synthetic europe-extent GeoTIFF months
+   (``GeoTiffInferenceDataset``, ``inference_on_full_images``, the
+   whole-frame path): 8 GeoTIFFs of 452x452, finite on land and NaN on sea;
+   samples/s, peak device memory, months/s,
+C. ``experiment=esrgan_fine_tune_no_gan_pre_training`` (the flagship ESRGAN,
+   the RFB-ESRGAN discriminator, VGG19 to conv5_4 on seeded weights) through
+   ``cli.train.run`` from phase 13's best checkpoint on the europe-extent set:
+   2 epochs of 2 steps, a validation each epoch, three test sets. Exactly 33
+   B1 + 33 B2 + 1 C per step and 33 A per generator forward (a GAN validation
+   batch runs two: the metric suite and the GAN val losses), no D, E or F.
+   Then A (12 and 4 x 64 x 113 x 113), B1 and B2 (16 x 64 x 113 x 113) and C
+   (16 x 64 x 452 x 452) against their plain versions at those shapes, as in
+   phases 3 and 6; the fine-tuned generator through A against the plain RDB
+   on the validation batch and a test batch's size, and its parameter
+   gradients of a train batch through B1, B2 and C against the plain versions
+   (each tensor and all together), with the plain versions in bf16 against
+   f32 printed beside. Last, the same fit through the plain versions from the
+   same seed, per-step loss_G and loss_D and the validations' val/rmse and
+   val/loss_G compared, beside that comparison's noise: the plain fit again,
+   and the plain fit from the checkpoint with every generator weight moved by
+   one bf16 rounding step; and the same three comparisons from a seeded
+   generator (printed, not held to the tolerance),
+D. DRLN and RFB-ESRGAN pre-training through ``cli.train.run`` on the composed
+   ``esrgan_pre_training`` experiment with ``generator=<name>``: 2 epochs of
+   one step of 192 over the same 192 tiles and one validation; finite
+   losses, the step-2 loss below the step-1 loss; peak device memory,
 14. one JSON line with every kernel (the launches of A, B1, B2 and C are
    phase 13's, and A's times, bound and error are per launch over phase 13's
    eval shapes, from phase 3), the card line, then the device line as the
@@ -121,6 +166,7 @@ result, where there is no card or no ``climsr_tpu_torch`` beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -175,6 +221,13 @@ PATH_TOL = {torch.bfloat16: 2e-2}
 # differences above, through the discriminator, VGG19 and the Adam updates
 GAN_LOSS_TOL = 2e-2
 GAN_STEPS = 4
+# phase C's compared keys: loss_G and loss_D per step, val/rmse and val/loss_G per validation
+GAN_KEYS = ("train/loss_G", "train/loss_D", "val/rmse", "val/loss_G")
+# phase C, the fine-tuned generator's parameter gradients of one train batch
+# against the plain versions in f32 (|got - ref| / |ref|, over all and for
+# each tensor): through B1, B2 and C in bf16 at most twice the plain versions'
+# in bf16, or this, the bound phase 7 puts on grad norms (STEP_GRAD_NORM_TOL)
+GRAD_TOL = 5e-2
 
 NF, NB, GC = 64, 11, 16
 NB_REF, GC_REF = 23, 32  # GeneratorConfig's defaults (with nf=64): the reference's own widths
@@ -187,6 +240,24 @@ TRAINER_TILES, TRAINER_EPOCHS = (128, 64, 64), 2
 # kernel A's shapes there: the validation set (3 x 64 tiles) in one batch of
 # 192, each test set in one of 64
 EVAL_SHAPES = ((TRAIN_N, TRAIN_LR, TRAIN_LR), (TRAINER_TILES[2], TRAIN_LR, TRAIN_LR))
+
+# phases A-D: the other generator families at their published widths
+# (conf/generator/*.yaml; 3 input channels, 1 output, x4)
+FAMILIES = {
+    "rcan": dict(n_resgroups=10, n_resblocks=20, n_feats=64, reduction=16),
+    "drln": dict(channels=64),
+    "rfb_esrgan": dict(num_rrdb_blocks=16, num_rrfdb_blocks=8),
+}
+FAMILY_N = 4  # phase A's tiles per comparison
+# phase A, max |got - ref| / max |ref| of a family's output: the card in f32
+# (TF32 off) against the CPU differs by the convs' summation order only
+# (cuDNN's against oneDNN's, through 400 convs for RCAN); bf16 against f32 on
+# the card by each conv's output rounding (2^-8 relative) carried through
+# the residual chains, as GENERATOR_TOL bounds it for ESRGAN
+FAMILY_CPU_TOL, FAMILY_BF16_TOL = 1e-3, 5e-2
+# europe extent (phases B, C): HR 452 frames per stage and temperature
+# variable (33 train = 2 steps of 16, 12 val, 3 test sets of 4), 8 months to infer
+EU_TILES, EU_HR, EU_MONTHS = (11, 4, 4), 452, 8
 
 
 def card_line() -> str:
@@ -591,15 +662,16 @@ def b2_passes(run, calls: int = 5) -> dict:
     return parts
 
 
-def phase_head_kernel(device) -> dict:
-    """Kernel C against conv9_dx_c0_reference, and the library's transposed conv."""
+def phase_head_kernel(device, shapes=((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91))) -> dict:
+    """Kernel C against conv9_dx_c0_reference at each of ``shapes``; at the
+    training shape also its times and the library's transposed conv."""
     import torch.nn.functional as F
 
     from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, conv9_dx_c0_reference
 
     result = {}
     gen = torch.Generator(device="cpu").manual_seed(0)
-    for n, h, w in ((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91)):
+    for n, h, w in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.randn(n, 64, h, w, generator=gen).to(device, dtype).contiguous(memory_format=torch.channels_last)
             weight = ((torch.rand(64, 3, 9, 9, generator=gen) * 2 - 1) / (81 * 3) ** 0.5).to(device, dtype)
@@ -991,6 +1063,8 @@ def phase_gan(device) -> dict:
     return dict(launches=launches, ms=ms, plain_ms=plain_ms)
 
 
+# ---- the training entry point (phases 13, B, C, D) ---------------------------
+
 def metric_rows(path: Path) -> list:
     """metrics.csv (a header row before each block of rows) -> [{column: float}]."""
     rows, header = [], None
@@ -1003,162 +1077,582 @@ def metric_rows(path: Path) -> list:
     return rows
 
 
-def phase_trainer(device, step_ms: float, card: str) -> dict:
-    """The training entry point end to end: the composed ``esrgan_pre_training``
-    experiment through ``cli.train.run`` on a synthetic WorldClim set (tiles on
-    the card, device augmentation), through the kernels and then through the
-    plain versions from the same seed; the best checkpoint read back."""
+@contextlib.contextmanager
+def keep_trainers(into: list):
+    """Keep each Trainer that ``cli.train.run`` closes (its models, its graft)."""
+    from climsr_tpu_torch.training import loop
+
+    close = loop.Trainer.close
+
+    def keep(self):
+        into.append(self)
+        close(self)
+
+    loop.Trainer.close = keep
+    try:
+        yield
+    finally:
+        loop.Trainer.close = close
+
+
+def fit_entry_point(device, root: Path, tag: str, overrides: list, tables: dict, profile: bool = False) -> dict:
+    """``compose`` + ``cli.train.run`` with the datamodule on ``tables``; the
+    run's Trainer, metrics rows, wall, peak device memory and kernel launches.
+    With ``profile``, one more train step of the fitted Trainer runs under
+    ``torch.profiler`` (the device's busy share, the top kernels) after the
+    numbers are taken."""
     from climsr_tpu_torch.cli.train import run
     from climsr_tpu_torch.config.compose import compose, default_config_dir
     from climsr_tpu_torch.config.schemas import SuperResolutionDataConfig, from_dict
     from climsr_tpu_torch.data.datamodule import SuperResolutionDataModule
+
+    counters = kernel_counters()
+    cfg = compose(default_config_dir(), "config", overrides + [
+        "trainer.log_every_n_steps=1", "logger=csv", "print_config=false", f"training.output_dir={root / tag}"])
+    dm = SuperResolutionDataModule(from_dict(SuperResolutionDataConfig, cfg["datamodule"]["cfg"]), tables=tables)
+    for c in counters.values():
+        c.launches = 0
+    trainers = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with keep_trainers(trainers):
+        hp = run(cfg, datamodule=dm, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (run_dir,) = (root / tag / "outputs" / "runs" / cfg["training"]["generator_type"]).iterdir()
+    rows = metric_rows(run_dir / "metrics.csv")
+    peak_gb, launches = torch.cuda.max_memory_allocated() / 1e9, {k: c.launches for k, c in counters.items()}
+    if profile and device.type == "cuda":
+        tr = trainers[0]
+        batch = next(iter(tr.train_loader))  # an index batch into the tile store on the card
+        device_breakdown(lambda: tr.train_step(tr.state, batch), top=8, what=f"{tag} train step")
+    return dict(cfg=cfg, dm=dm, trainer=trainers[0], run_dir=run_dir, hp=hp, wall=wall,
+                peak_gb=peak_gb, launches=launches,
+                train=[r for r in rows if any(k.startswith("train/loss") for k in r)],
+                val=[r for r in rows if "val/rmse" in r], test=[r for r in rows if any("test/" in k for k in r)])
+
+
+def kernel_counters() -> dict:
+    """Each kernel's launch-counting wrapper, by the label the PERF table gives it."""
+    from climsr_tpu_torch.ops.head import fused_hr_tail
+    from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, dc0
+    from climsr_tpu_torch.ops.rdb import fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save, fused_rdb_nhwc
+
+    return dict(A=fused_rdb, B1=fused_rdb_fwd_save, B2=fused_rdb_bwd, C=conv9_dx_c0, D=fused_rdb_nhwc,
+                E=fused_hr_tail, F=dc0)
+
+
+def report_fit(tag: str, r: dict, loss_key: str, card: str) -> None:
+    """Print a fit's logged trajectory, rates, peak memory and launches; raise on a non-finite value."""
+    steps = [int(x["step"]) for x in r["train"]]
+    print(f"# {tag}: {r['wall']:.3f} s for fit + test, hp_metric {r['hp']:.6f}; {loss_key} "
+          f"{['%.6f' % x[loss_key] for x in r['train']]} at steps {steps}, val/rmse "
+          f"{['%.6f' % x['val/rmse'] for x in r['val']]}; train/samples_per_sec "
+          f"{['%.2f' % x['train/samples_per_sec'] for x in r['train']]}; peak device memory {r['peak_gb']:.3f} GB "
+          f"({card}); launches {r['launches']}")
+    values = [x[loss_key] for x in r["train"]] + [x["val/rmse"] for x in r["val"]]
+    if not all(np.isfinite(values)) or not np.isfinite(r["hp"]):
+        raise AssertionError(f"{tag}: a non-finite loss or metric")
+
+
+def phase_trainer(device, step_ms: float, card: str, root: Path) -> dict:
+    """The training entry point end to end: the composed ``esrgan_pre_training``
+    experiment through ``cli.train.run`` on a synthetic WorldClim set (tiles on
+    the card, device augmentation), through the kernels and then through the
+    plain versions from the same seed; the best checkpoint read back. The set
+    and the runs live under ``root``; returns the set's tables and the best
+    checkpoint's path beside the numbers."""
     from climsr_tpu_torch.data.pipeline import DataLoader, build_eval_device_store, device_prefetch, gather
     from climsr_tpu_torch.data.synthetic import make_synthetic_dataset
     from climsr_tpu_torch.interop.params import load_generator_checkpoint
     from climsr_tpu_torch.models import apply_generator_batch, create_generator
-    from climsr_tpu_torch.ops.head import fused_hr_tail
-    from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, dc0
-    from climsr_tpu_torch.ops.rdb import fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save, fused_rdb_nhwc
-    from climsr_tpu_torch.training import loop
     from climsr_tpu_torch.training.checkpoint import CheckpointManager
     from climsr_tpu_torch.training.tasks.pretrain import make_eval_step
 
-    counters = dict(A=fused_rdb, B1=fused_rdb_fwd_save, B2=fused_rdb_bwd, C=conv9_dx_c0, D=fused_rdb_nhwc,
-                    E=fused_hr_tail, F=dc0)
-    trained = []
-    close = loop.Trainer.close
+    t = time.perf_counter()
+    tables = make_synthetic_dataset(root / "ds", n_tiles_per_stage=TRAINER_TILES, seed=0, write_index=False)
+    data_s = time.perf_counter() - t
+    overrides = ["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+                 f"trainer.max_epochs={TRAINER_EPOCHS}", "profiler=simple"]
 
-    def keep_model(self):  # the trained generator, for the checkpoint check below
-        trained.append(self.g_model)
-        close(self)
+    def fit(tag: str) -> dict:
+        r = fit_entry_point(device, root, tag, overrides, tables)
+        report_fit(f"trainer {tag}", r, "train/loss", card)
+        for line in (r["run_dir"] / "profile_stages.txt").read_text().splitlines():
+            print(f"#   stage {line.strip()}")
+        return r
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t = time.perf_counter()
-        tables = make_synthetic_dataset(root / "ds", n_tiles_per_stage=TRAINER_TILES, seed=0, write_index=False)
-        data_s = time.perf_counter() - t
+    r = fit("kernels")
+    cfg, dm, run_dir, train, val, launches, wall = (r[k] for k in ("cfg", "dm", "run_dir", "train", "val",
+                                                                   "launches", "wall"))
+    trained = r["trainer"].g_model
+    cfg_ = cfg["datamodule"]["cfg"]
+    n_train, bs, vbs = 3 * TRAINER_TILES[0], cfg_["batch_size"], cfg_["validation_batch_size"]
+    steps = TRAINER_EPOCHS * (n_train // bs)
+    def sizes(n):  # the eval batches of a set of n tiles (a padded tail runs on its valid prefix)
+        return [min(vbs, n - i) for i in range(0, n, vbs)]
 
-        def fit(tag: str):
-            cfg = compose(default_config_dir(), "config", [
-                "experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
-                f"trainer.max_epochs={TRAINER_EPOCHS}", "trainer.log_every_n_steps=1", "profiler=simple",
-                "logger=csv", "print_config=false", f"training.output_dir={root / tag}",
-            ])
-            data_cfg = from_dict(SuperResolutionDataConfig, cfg["datamodule"]["cfg"])
-            dm = SuperResolutionDataModule(data_cfg, tables=tables)
-            for c in counters.values():
-                c.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loop.Trainer.close = keep_model
-            try:
-                hp = run(cfg, datamodule=dm, device=device)
-            finally:
-                loop.Trainer.close = close
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counters.items()}
-            (run_dir,) = (root / tag / "outputs" / "runs" / "esrgan").iterdir()
-            rows = metric_rows(run_dir / "metrics.csv")
-            train = [r for r in rows if "train/loss" in r]
-            val = [r for r in rows if "val/rmse" in r]
-            print(f"# trainer {tag}: {wall:.3f} s for fit + test, hp_metric {hp:.6f}; train/loss "
-                  f"{['%.6f' % r['train/loss'] for r in train]}, val/rmse {['%.6f' % r['val/rmse'] for r in val]}, "
-                  f"train/samples_per_sec {['%.2f' % r['train/samples_per_sec'] for r in train]}; launches {launches}")
-            for line in (run_dir / "profile_stages.txt").read_text().splitlines():
-                print(f"#   stage {line.strip()}")
-            return cfg, dm, run_dir, train, val, launches, wall
+    eval_sizes = TRAINER_EPOCHS * sizes(3 * TRAINER_TILES[1]) + 3 * sizes(TRAINER_TILES[2])
+    eval_batches = len(eval_sizes)
+    if {(n, TRAIN_LR, TRAIN_LR) for n in eval_sizes} != set(EVAL_SHAPES):
+        raise AssertionError(f"trainer: eval batches {eval_sizes} are not kernel A's timed shapes {EVAL_SHAPES}")
+    gen = cfg["generator"]
+    nb = gen["nb"]
+    expected = dict(A=3 * nb * eval_batches, B1=3 * nb * steps, B2=3 * nb * steps, C=steps, D=0, E=0, F=0)
+    print(f"# trainer launches: {steps} steps x (3 x nb={nb} B1 + 3 x nb B2 + 1 C), {eval_batches} eval batches "
+          f"({TRAINER_EPOCHS} val + 3 test) x 3 x nb A = {expected}; counted {launches}")
+    if launches != expected or len(train) != steps or len(val) != TRAINER_EPOCHS:
+        raise AssertionError(f"trainer: expected launches {expected} over {steps} logged steps and "
+                             f"{TRAINER_EPOCHS} validations, counted {launches}, {len(train)}, {len(val)}")
+    if (gen["nf"], nb, gen["gc"], bs, cfg["trainer"]["precision"]) != (NF, NB, GC, TRAIN_N, "bf16"):
+        raise AssertionError(f"trainer: the composed config is not the flagship at batch {TRAIN_N}: {gen}")
 
-        cfg, dm, run_dir, train, val, launches, wall = fit("kernels")
-        cfg_ = cfg["datamodule"]["cfg"]
-        n_train, bs, vbs = 3 * TRAINER_TILES[0], cfg_["batch_size"], cfg_["validation_batch_size"]
-        steps = TRAINER_EPOCHS * (n_train // bs)
-        def sizes(n):  # the eval batches of a set of n tiles (a padded tail runs on its valid prefix)
-            return [min(vbs, n - i) for i in range(0, n, vbs)]
+    with plain_rdb(), plain_training():
+        plain = fit("plain")
+    plain_train, plain_val, plain_wall = plain["train"], plain["val"], plain["wall"]
+    pairs = [(a["train/loss"], b["train/loss"]) for a, b in zip(train, plain_train)]
+    pairs += [(a["val/rmse"], b["val/rmse"]) for a, b in zip(val, plain_val)]
+    traj_err = max(abs(a - b) / abs(b) for a, b in pairs)
+    print(f"# trainer kernels vs plain: train/loss and val/rmse within {traj_err:.2e} (relative; tol "
+          f"{TRAJECTORY_TOL:g})")
+    if not traj_err <= TRAJECTORY_TOL or not all(np.isfinite(a) for a, _ in pairs):
+        raise AssertionError("trainer through the kernels disagrees with the plain versions")
 
-        eval_sizes = TRAINER_EPOCHS * sizes(3 * TRAINER_TILES[1]) + 3 * sizes(TRAINER_TILES[2])
-        eval_batches = len(eval_sizes)
-        if {(n, TRAIN_LR, TRAIN_LR) for n in eval_sizes} != set(EVAL_SHAPES):
-            raise AssertionError(f"trainer: eval batches {eval_sizes} are not kernel A's timed shapes {EVAL_SHAPES}")
-        gen = cfg["generator"]
-        nb = gen["nb"]
-        expected = dict(A=3 * nb * eval_batches, B1=3 * nb * steps, B2=3 * nb * steps, C=steps, D=0, E=0, F=0)
-        print(f"# trainer launches: {steps} steps x (3 x nb={nb} B1 + 3 x nb B2 + 1 C), {eval_batches} eval batches "
-              f"({TRAINER_EPOCHS} val + 3 test) x 3 x nb A = {expected}; counted {launches}")
-        if launches != expected or len(train) != steps or len(val) != TRAINER_EPOCHS:
-            raise AssertionError(f"trainer: expected launches {expected} over {steps} logged steps and "
-                                 f"{TRAINER_EPOCHS} validations, counted {launches}, {len(train)}, {len(val)}")
-        if (gen["nf"], nb, gen["gc"], bs, cfg["trainer"]["precision"]) != (NF, NB, GC, TRAIN_N, "bf16"):
-            raise AssertionError(f"trainer: the composed config is not the flagship at batch {TRAIN_N}: {gen}")
+    # the best checkpoint into a fresh generator: its validation reproduces
+    # the logged val/rmse; the latest gives the trained model's output
+    mgr = CheckpointManager(run_dir / "checkpoints", save_top_k=-1)
+    kw = dict(dtype=torch.bfloat16, device=device, train=True, in_channels=3, out_channels=1, nf=gen["nf"],
+              nb=nb, gc=gen["gc"])
+    store = build_eval_device_store(dm.val_dataset, device=device)
+    n_val = len(dm.val_dataset)
+    batches = [gather(store, torch.arange(i, min(i + vbs, n_val), device=device)) for i in range(0, n_val, vbs)]
+    fresh = create_generator("esrgan", **kw)
+    fresh.load_state_dict(load_generator_checkpoint(mgr.path(mgr.best_step)), strict=True)
+    eval_step = make_eval_step(fresh, "esrgan", device=device)
+    # the Trainer's epoch mean: batch means weighted by batch size
+    best_rmse = sum(eval_step(b)["val/rmse"].item() * len(b["hr"]) for b in batches) / n_val
+    batch = batches[0]
+    logged = next(r["val/rmse"] for r in val if r["step"] == mgr.best_step)
+    latest = create_generator("esrgan", **kw)
+    latest.load_state_dict(load_generator_checkpoint(mgr.path(mgr.latest_step)), strict=True)
+    tiles = {k: v[:16] for k, v in batch.items()}
+    with torch.inference_mode():
+        out = [apply_generator_batch("esrgan", m, tiles, torch.bfloat16) for m in (latest, trained)]
+    ckpt_err = (out[0] - out[1]).abs().max().item()
+    print(f"# trainer checkpoints: best step {mgr.best_step} re-validated val/rmse {best_rmse:.6f} against "
+          f"logged {logged:.6f}; latest step {mgr.latest_step} on 16 tiles: max |loaded - trained| {ckpt_err:.3e}")
+    if abs(best_rmse - logged) > 1e-5 * abs(logged) or ckpt_err != 0.0:
+        raise AssertionError("trainer: a checkpoint read back does not give the trained model's numbers")
 
-        with plain_rdb(), plain_training():
-            *_, plain_train, plain_val, _, plain_wall = fit("plain")
-        pairs = [(a["train/loss"], b["train/loss"]) for a, b in zip(train, plain_train)]
-        pairs += [(a["val/rmse"], b["val/rmse"]) for a, b in zip(val, plain_val)]
-        traj_err = max(abs(a - b) / abs(b) for a, b in pairs)
-        print(f"# trainer kernels vs plain: train/loss and val/rmse within {traj_err:.2e} (relative; tol "
-              f"{TRAJECTORY_TOL:g})")
-        if not traj_err <= TRAJECTORY_TOL or not all(np.isfinite(a) for a, _ in pairs):
-            raise AssertionError("trainer through the kernels disagrees with the plain versions")
-
-        # the best checkpoint into a fresh generator: its validation reproduces
-        # the logged val/rmse; the latest gives the trained model's output
-        mgr = CheckpointManager(run_dir / "checkpoints", save_top_k=-1)
-        kw = dict(dtype=torch.bfloat16, device=device, train=True, in_channels=3, out_channels=1, nf=gen["nf"],
-                  nb=nb, gc=gen["gc"])
-        store = build_eval_device_store(dm.val_dataset, device=device)
-        n_val = len(dm.val_dataset)
-        batches = [gather(store, torch.arange(i, min(i + vbs, n_val), device=device)) for i in range(0, n_val, vbs)]
-        fresh = create_generator("esrgan", **kw)
-        fresh.load_state_dict(load_generator_checkpoint(mgr.path(mgr.best_step)), strict=True)
-        eval_step = make_eval_step(fresh, "esrgan", device=device)
-        # the Trainer's epoch mean: batch means weighted by batch size
-        best_rmse = sum(eval_step(b)["val/rmse"].item() * len(b["hr"]) for b in batches) / n_val
-        batch = batches[0]
-        logged = next(r["val/rmse"] for r in val if r["step"] == mgr.best_step)
-        latest = create_generator("esrgan", **kw)
-        latest.load_state_dict(load_generator_checkpoint(mgr.path(mgr.latest_step)), strict=True)
-        tiles = {k: v[:16] for k, v in batch.items()}
+    # kernel A in the trained generator on this path's eval inputs (a
+    # validation batch of 192, and of 64 as a test set's), against the
+    # plain RDB on the same inputs
+    for n in sorted(set(eval_sizes)):
+        tiles = {k: v[:n] for k, v in batch.items()}
         with torch.inference_mode():
-            out = [apply_generator_batch("esrgan", m, tiles, torch.bfloat16) for m in (latest, trained[0])]
-        ckpt_err = (out[0] - out[1]).abs().max().item()
-        print(f"# trainer checkpoints: best step {mgr.best_step} re-validated val/rmse {best_rmse:.6f} against "
-              f"logged {logged:.6f}; latest step {mgr.latest_step} on 16 tiles: max |loaded - trained| {ckpt_err:.3e}")
-        if abs(best_rmse - logged) > 1e-5 * abs(logged) or ckpt_err != 0.0:
-            raise AssertionError("trainer: a checkpoint read back does not give the trained model's numbers")
+            got = apply_generator_batch("esrgan", trained, tiles, torch.bfloat16)
+            with plain_rdb():
+                ref = apply_generator_batch("esrgan", trained, tiles, torch.bfloat16)
+        rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+        print(f"# trainer's generator on {n} val tiles, kernel A against the plain RDB: relative err {rel:.3e} "
+              f"(tol {GENERATOR_TOL[torch.bfloat16]:g})")
+        if not rel <= GENERATOR_TOL[torch.bfloat16] or not torch.isfinite(got).all():
+            raise AssertionError(f"trainer: the trained generator through kernel A disagrees with the plain RDB")
 
-        # kernel A in the trained generator on this path's eval inputs (a
-        # validation batch of 192, and of 64 as a test set's), against the
-        # plain RDB on the same inputs
-        for n in sorted(set(eval_sizes)):
-            tiles = {k: v[:n] for k, v in batch.items()}
-            with torch.inference_mode():
-                got = apply_generator_batch("esrgan", trained[0], tiles, torch.bfloat16)
-                with plain_rdb():
-                    ref = apply_generator_batch("esrgan", trained[0], tiles, torch.bfloat16)
-            rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
-            print(f"# trainer's generator on {n} val tiles, kernel A against the plain RDB: relative err {rel:.3e} "
-                  f"(tol {GENERATOR_TOL[torch.bfloat16]:g})")
-            if not rel <= GENERATOR_TOL[torch.bfloat16] or not torch.isfinite(got).all():
-                raise AssertionError(f"trainer: the trained generator through kernel A disagrees with the plain RDB")
-
-        # the streaming path (no device store): the val loader through pinned
-        # memory and a side stream gives the store's batches bit for bit
-        loader = DataLoader(dm.val_dataset, vbs, shuffle=False, drop_last=False, pad_last=True, num_workers=8)
-        n = 0
-        for got, want in zip(device_prefetch(iter(loader), device), batches):
-            nv = len(want["hr"])
-            if got["hr"].device != want["hr"].device or not all(torch.equal(got[k][:nv], v) for k, v in want.items()):
-                raise AssertionError("device_prefetch: a batch differs from the device store's")
-            n += 1
-        print(f"# device_prefetch: {n} val batch(es) through pinned host memory and a side stream equal the "
-              f"device store's, bit for bit")
+    # the streaming path (no device store): the val loader through pinned
+    # memory and a side stream gives the store's batches bit for bit
+    loader = DataLoader(dm.val_dataset, vbs, shuffle=False, drop_last=False, pad_last=True, num_workers=8)
+    n = 0
+    for got, want in zip(device_prefetch(iter(loader), device), batches):
+        nv = len(want["hr"])
+        if got["hr"].device != want["hr"].device or not all(torch.equal(got[k][:nv], v) for k, v in want.items()):
+            raise AssertionError("device_prefetch: a batch differs from the device store's")
+        n += 1
+    print(f"# device_prefetch: {n} val batch(es) through pinned host memory and a side stream equal the "
+          f"device store's, bit for bit")
 
     sps = train[-1]["train/samples_per_sec"]
     print(f"# trainer samples/s: {sps:.2f} (train/samples_per_sec at step {steps}, epoch {TRAINER_EPOCHS}) against "
           f"{TRAIN_N / step_ms * 1e3:.2f} for phase 7's bare step at batch {TRAIN_N}; fit + test {wall:.3f} s "
           f"({plain_wall:.3f} s plain); synthetic set {data_s:.3f} s ({card})")
-    return dict(launches=launches, samples_per_sec=sps, eval_sizes=eval_sizes)
+    return dict(launches=launches, samples_per_sec=sps, eval_sizes=eval_sizes, tables=tables,
+                best_ckpt=mgr.path(mgr.best_step))
+
+
+# ---- phases A-D: the RCAN, DRLN and RFB-ESRGAN families ---------------------
+
+def family_model(name: str, device, dtype, train: bool = False):
+    """A family at its published width (``conf/generator``; the RFB
+    discriminator at HR 128), seeded: the same weights on every device and in
+    every dtype (bf16 rounds them)."""
+    from climsr_tpu_torch.models import create_discriminator, create_generator
+
+    gen = torch.Generator().manual_seed(0)
+    if name == "rfb_discriminator":
+        return create_discriminator("rfb_esrgan", dtype=dtype, generator=gen, device=device, train=train, in_channels=1)
+    return create_generator(name, dtype=dtype, generator=gen, device=device, in_channels=3, out_channels=1,
+                            scaling_factor=4, **FAMILIES[name])
+
+
+def family_inputs(name: str, n: int, device, dtype) -> tuple:
+    """Seeded inputs: n LR tiles of 32x32 (with elevation and mask for RCAN), or n HR tiles of 128."""
+    gen = torch.Generator().manual_seed(2)
+    if name == "rfb_discriminator":
+        args = (torch.rand(n, 1, 4 * TRAIN_LR, 4 * TRAIN_LR, generator=gen) * 2 - 1,)
+    else:
+        args = (torch.randn(n, 3, TRAIN_LR, TRAIN_LR, generator=gen),)
+        if name == "rcan":
+            hr = (n, 1, 4 * TRAIN_LR, 4 * TRAIN_LR)
+            args += (torch.randn(hr, generator=gen), (torch.rand(hr, generator=gen) > 0.3).float())
+    return tuple(a.to(device=device, dtype=dtype).contiguous(memory_format=torch.channels_last) for a in args)
+
+
+def family_forward(name: str, model, args) -> torch.Tensor:
+    """The generator's output, or the discriminator's logits (before its sigmoid,
+    which would hide the differences near 0.5)."""
+    return model.logits(*args) if name == "rfb_discriminator" else model(*args)
+
+
+def phase_families(device, card: str) -> dict:
+    """Phase A: each family's modules at full width, on the card in f32 (TF32
+    off) against the same module and weights on the CPU, and in bf16 against
+    f32 on the card; each one's forward ms at batch 192 in bf16."""
+    out = {}
+    for name in (*FAMILIES, "rfb_discriminator"):
+        train = name == "rfb_discriminator"  # the GAN step runs D in train mode (batch statistics)
+        cpu_model = family_model(name, torch.device("cpu"), torch.float32, train)
+        with torch.no_grad():
+            ref = family_forward(name, cpu_model, family_inputs(name, FAMILY_N, torch.device("cpu"), torch.float32))
+        n_params = sum(p.numel() for p in cpu_model.parameters())
+        del cpu_model
+        got = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = family_model(name, device, dtype, train)
+            with torch.no_grad():
+                got[dtype] = family_forward(name, model, family_inputs(name, FAMILY_N, device, dtype)).float()
+        _, cpu_rel = rel_err(got[torch.float32].cpu(), ref)
+        _, bf16_rel = rel_err(got[torch.bfloat16], got[torch.float32])
+        args = family_inputs(name, TRAIN_N, device, torch.bfloat16)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(*args), reps=3, inner=2)
+            if device.type == "cuda":
+                device_breakdown(lambda: model(*args), top=5, what=f"{name} forward at batch {TRAIN_N}")
+        print(f"# family {name} ({n_params / 1e6:.2f}M params) on {FAMILY_N} tiles -> {tuple(ref.shape)}: card f32 "
+              f"vs CPU f32 {cpu_rel:.3e} (tol {FAMILY_CPU_TOL:g}), card bf16 vs card f32 {bf16_rel:.3e} (tol "
+              f"{FAMILY_BF16_TOL:g}); forward {ms:.3f} ms at batch {TRAIN_N} bf16 ({card})")
+        if not (torch.isfinite(got[torch.bfloat16]).all() and cpu_rel <= FAMILY_CPU_TOL
+                and bf16_rel <= FAMILY_BF16_TOL):
+            raise AssertionError(f"family {name}: the card disagrees with the CPU or bf16 with f32")
+        out[name] = dict(ms=ms, cpu_rel=cpu_rel, bf16_rel=bf16_rel)
+        del model, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def make_europe_months(root: Path, months: int, seed: int = 3) -> dict:
+    """Synthetic europe-extent inference inputs: ``months`` LR GeoTIFFs of
+    113x113 (0.5 deg), a 452x452 elevation and land mask (NaN on sea, ~30%),
+    and the min-max table ``GeoTiffInferenceDataset`` reads."""
+    from climsr_tpu_torch.consts.datasets_and_preprocessing import europe_bbox_hr
+    from climsr_tpu_torch.data.tables import Table
+    from climsr_tpu_torch.io.geotiff import GeoProfile, write_geotiff
+
+    rng = np.random.default_rng(seed)
+    hr, lr = EU_HR, EU_HR // 4
+    (x0, y0), _ = europe_bbox_hr
+    hr_prof = GeoProfile(width=hr, height=hr, origin_x=x0, origin_y=y0, pixel_size_x=0.125, pixel_size_y=0.125,
+                         nodata=np.nan)
+    yy, xx = np.meshgrid(np.linspace(0, 1, hr), np.linspace(0, 1, hr), indexing="ij")
+    field = np.cos(5 * xx + 1.0) * np.cos(4 * yy) + 0.3 * np.sin(11 * xx * yy)
+    mask = np.where(field < np.quantile(field, 0.7), 1.0, np.nan).astype(np.float32)
+    write_geotiff(root / "land_mask.tif", mask, hr_prof)
+    write_geotiff(root / "elevation.tif", rng.normal(500, 300, (hr, hr)).astype(np.float32), hr_prof)
+    lr_prof = GeoProfile(width=lr, height=lr, origin_x=x0, origin_y=y0, pixel_size_x=0.5, pixel_size_y=0.5,
+                         nodata=np.nan)
+    names = [f"tmp_2001-{m + 1:02d}.tif" for m in range(months)]
+    for name in names:
+        write_geotiff(root / "tiffs" / name, rng.normal(10, 5, (lr, lr)).astype(np.float32), lr_prof)
+    table = Table({"filename": names, "min": [-10.0] * months, "max": [30.0] * months,
+                   "global_min": [-15.0] * months, "global_max": [35.0] * months})
+    return dict(tiff_dir=str(root / "tiffs"), tiff_df=table, elevation_file=str(root / "elevation.tif"),
+                land_mask_file=str(root / "land_mask.tif"), mask=~np.isnan(mask))
+
+
+def phase_rcan(device, root: Path, world_tables: dict, eu_tables: dict, card: str) -> dict:
+    """Phase B: RCAN as the reference ships it, through the entry points:
+    ``rcan_pre_training`` on the world set, ``rcan_fine_tuning`` from its best
+    checkpoint on the europe-extent set, and the fine-tuned model over 8
+    europe-extent GeoTIFF months (the whole-frame path)."""
+    from climsr_tpu_torch.inference.datasets import GeoTiffInferenceDataset
+    from climsr_tpu_torch.inference.run import inference_on_full_images, load_generator
+    from climsr_tpu_torch.io.geotiff import read_geotiff
+    from climsr_tpu_torch.training.checkpoint import CheckpointManager
+
+    pre = fit_entry_point(device, root, "rcan_pre", [
+        "experiment=rcan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+        f"trainer.max_epochs={TRAINER_EPOCHS}"], world_tables, profile=True)
+    gen, bs = pre["cfg"]["generator"], pre["cfg"]["training"]["batch_size"]
+    steps = TRAINER_EPOCHS * (3 * TRAINER_TILES[0] // bs)
+    report_fit(f"RCAN pre-training (batch {bs})", pre, "train/loss", card)
+    if {k: gen[k] for k in FAMILIES["rcan"]} != FAMILIES["rcan"]:
+        raise AssertionError(f"RCAN pre-training: not the published widths: {gen}")
+    if len(pre["train"]) != steps or len(pre["val"]) != TRAINER_EPOCHS or len(pre["test"]) != 3:
+        raise AssertionError(f"RCAN pre-training: {len(pre['train'])} steps, {len(pre['val'])} validations, "
+                             f"{len(pre['test'])} test rows; expected {steps}, {TRAINER_EPOCHS}, 3")
+    if any(pre["launches"].values()):
+        raise AssertionError(f"RCAN runs no TPU kernel's counterpart, counted {pre['launches']}")
+
+    fine = fit_entry_point(device, root, "rcan_fine", [
+        "experiment=rcan_fine_tuning", f"datamodule.cfg.data_path={root / 'eu'}",
+        f"trainer.max_epochs={TRAINER_EPOCHS}", f"training.model_weights={pre['run_dir'] / 'checkpoints'}"], eu_tables,
+        profile=True)
+    copied, total = fine["trainer"].graft
+    report_fit(f"RCAN fine-tuning (europe extent, batch {fine['cfg']['training']['batch_size']})", fine,
+               "train/loss", card)
+    print(f"# RCAN fine-tuning graft: {copied} of {total} generator tensors copied from the pre-training's best "
+          f"checkpoint; HR {fine['dm'].train_dataset.hr_size}")
+    if copied != total or fine["dm"].train_dataset.hr_size != EU_HR:
+        raise AssertionError("RCAN fine-tuning: the graft missed a tensor, or the run is not at europe extent")
+
+    mgr = CheckpointManager(fine["run_dir"] / "checkpoints", save_top_k=-1)
+    model = load_generator(str(mgr.path(mgr.best_step)), "rcan", fine["cfg"]["generator"], device=device)
+    months = make_europe_months(root / "eu_months", EU_MONTHS)
+    mask = months.pop("mask")
+    ds = GeoTiffInferenceDataset(**months, generator_type="rcan", variable="tmp", hr_size=EU_HR, scaling_factor=4)
+    seconds = []
+    for sweep in ("first", "second"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        paths = inference_on_full_images(model, ds, str(root / "eu_out" / sweep), "rcan", batch_size=8,
+                                         device=device)
+        seconds.append(time.perf_counter() - t)
+    for p in paths:
+        arr, _ = read_geotiff(p)
+        if arr.shape != (EU_HR, EU_HR) or not (np.isfinite(arr[mask]).all() and np.isnan(arr[~mask]).all()):
+            raise AssertionError(f"{p}: shape {arr.shape}, or not finite on land and NaN on sea")
+    if len(paths) != EU_MONTHS:
+        raise AssertionError(f"RCAN inference: expected {EU_MONTHS} GeoTIFFs, got {len(paths)}")
+    rates = [EU_MONTHS / s for s in seconds]
+    print(f"# RCAN europe-extent inference: {len(paths)} GeoTIFFs of {EU_HR}x{EU_HR}, finite on land and NaN on "
+          f"sea (land {mask.mean():.4f}); {rates[0]:.4f} months/s first sweep, {rates[1]:.4f} second ({card})")
+    return dict(pre=pre["train"][-1]["train/samples_per_sec"], fine=fine["train"][-1]["train/samples_per_sec"],
+                pre_peak=pre["peak_gb"], fine_peak=fine["peak_gb"], months_per_s=rates)
+
+
+def moved_ckpt(src: Path, dst: Path, seed: int = 5) -> Path:
+    """A copy of the ``.ckpt`` at ``src`` with every floating-point generator
+    tensor moved by one bf16 rounding step (2^-8 relative, signs from
+    ``seed``): a start that differs from ``src``'s by about what the kernels'
+    roundings make differ from the plain versions'."""
+    ckpt = torch.load(src, map_location="cpu", weights_only=True)
+    gen = torch.Generator().manual_seed(seed)
+    sd = ckpt["state_dict"]
+    for k, v in sd.items():
+        if k.startswith("generator.") and v.is_floating_point():
+            sign = torch.randint(0, 2, v.shape, generator=gen).to(v.dtype) * 2 - 1
+            sd[k] = v * (1 + sign * 2.0 ** -8)
+    torch.save(ckpt, dst)
+    return dst
+
+
+def trajectory_err(got: dict, ref: dict, keys=GAN_KEYS) -> dict:
+    """Worst relative difference per key between two GAN fits' logged rows
+    (per step for train/..., per validation for val/...)."""
+    out = {}
+    for k in keys:
+        rows = "val" if k.startswith("val/") else "train"
+        out[k] = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got[rows], ref[rows]))
+    return out
+
+
+def generator_grads(model, batch: dict, dtype) -> dict:
+    """Every parameter's gradient (f32) of the mean squared error between the
+    generator's output on ``batch`` in ``dtype`` and the batch's HR target."""
+    from climsr_tpu_torch.models import apply_generator_batch
+
+    model.zero_grad(set_to_none=True)
+    sr = apply_generator_batch("esrgan", model, batch, dtype).float()
+    (sr - batch["hr"].to(sr.device, torch.float32)).square().mean().backward()
+    grads = {k: p.grad.float().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def grad_err(got: dict, ref: dict) -> tuple:
+    """(|got - ref| / |ref| over all gradients as one vector, {name: that ratio for the one tensor})."""
+    num = sum((got[k] - ref[k]).square().sum().item() for k in ref)
+    den = sum(ref[k].square().sum().item() for k in ref)
+    return (num / den) ** 0.5, {k: ((got[k] - ref[k]).norm() / ref[k].norm().clamp_min(1e-30)).item() for k in ref}
+
+
+def phase_gan_preset(device, root: Path, eu_tables: dict, best_ckpt: Path, card: str) -> dict:
+    """Phase C: the ESRGAN GAN fine-tune preset with its RFB-ESRGAN
+    discriminator through ``cli.train.run``, from phase 13's best checkpoint
+    on the europe-extent set: kernels B1, B2 and C in each step, A in each
+    generator forward of validation and test. Then each kernel at this path's
+    shapes against its plain version; the fine-tuned generator on this path's
+    batches through the kernels and through the plain versions (A's output,
+    B1, B2 and C's parameter gradients); and the same fit through the plain
+    versions from the same seed, beside the same comparison's noise: the
+    plain fit again, and from a start moved by one bf16 rounding step, from
+    phase 13's checkpoint and from a seeded generator."""
+    from climsr_tpu_torch.data.pipeline import build_eval_device_store, gather
+    from climsr_tpu_torch.models import apply_generator_batch
+
+    def overrides(weights: Path) -> list:
+        return ["experiment=esrgan_fine_tune_no_gan_pre_training", f"datamodule.cfg.data_path={root / 'eu'}",
+                f"trainer.max_epochs={TRAINER_EPOCHS}", f"training.model_weights={weights}"]
+
+    r = fit_entry_point(device, root, "gan_kernels", overrides(best_ckpt), eu_tables, profile=True)
+    cfg, trainer = r["cfg"], r["trainer"]
+    report_fit("GAN fine-tune preset", r, "train/loss_G", card)
+    nb, bs, vbs = cfg["generator"]["nb"], cfg["training"]["batch_size"], cfg["training"]["validation_batch_size"]
+    n_train, n_val, n_test = 3 * EU_TILES[0], 3 * EU_TILES[1], EU_TILES[2]
+    steps = TRAINER_EPOCHS * (n_train // bs)
+    val_batches, test_batches = -(-n_val // vbs), 3 * -(-n_test // vbs)
+    # a GAN validation batch runs the generator twice (the metric suite, then the GAN val losses)
+    expected = dict(A=3 * nb * (2 * TRAINER_EPOCHS * val_batches + test_batches), B1=3 * nb * steps,
+                    B2=3 * nb * steps, C=steps, D=0, E=0, F=0)
+    print(f"# phase C launches: {steps} steps x (3 x nb={nb} B1 + 3 x nb B2 + 1 C), {TRAINER_EPOCHS} validations "
+          f"x {val_batches} batch x 2 forwards + {test_batches} test batches, 3 x nb A per forward: expected "
+          f"{expected}, counted {r['launches']}")
+    if r["launches"] != expected or len(r["train"]) != steps or len(r["val"]) != TRAINER_EPOCHS:
+        raise AssertionError(f"GAN preset: expected launches {expected} over {steps} steps, counted {r['launches']} "
+                             f"over {len(r['train'])}")
+    if cfg["discriminator"]["name"] != "rfb_esrgan" or type(trainer.d_model).__name__ != "RFBESRGANDiscriminator":
+        raise AssertionError(f"GAN preset: the discriminator is not RFB-ESRGAN's: {cfg['discriminator']}")
+    copied, total = trainer.graft
+    if copied != total or trainer.dm.train_dataset.hr_size != EU_HR:
+        raise AssertionError(f"GAN preset: graft {copied} of {total}, HR {trainer.dm.train_dataset.hr_size}")
+
+    # each kernel at this path's shapes against its plain version (seeded
+    # inputs): A at the eval batches (12 validation tiles, 4 per test set),
+    # B1 and B2 at the train batch, C at its HR gradient
+    lr = EU_HR // 4
+    eval_sizes = sorted({min(vbs, n_val), min(vbs, n_test)})
+    phase_kernel(device, shapes=tuple((n, lr, lr) for n in eval_sizes), timed=())
+    phase_train_kernels(device, shapes=((bs, lr, lr),))
+    phase_head_kernel(device, shapes=((bs, EU_HR, EU_HR),))
+
+    # the fine-tuned generator on this path's own batches: A on the eval
+    # batches, and the parameter gradients of a train batch (B1, B2, C)
+    # through the kernels and through the plain versions, beside the plain
+    # versions in bf16 against f32 (TF32 off)
+    g = trainer.g_model
+    val_store = build_eval_device_store(trainer.dm.val_dataset, device=device)
+    for n in eval_sizes:
+        tiles = gather(val_store, torch.arange(n, device=device))
+        with torch.inference_mode():
+            got = apply_generator_batch("esrgan", g, tiles, torch.bfloat16)
+            with plain_rdb():
+                ref = apply_generator_batch("esrgan", g, tiles, torch.bfloat16)
+        _, rel = rel_err(got, ref)
+        print(f"# GAN preset's generator on {n} val tiles of {lr}x{lr}, kernel A against the plain RDB: relative "
+              f"err {rel:.3e} (tol {GENERATOR_TOL[torch.bfloat16]:g})")
+        if not rel <= GENERATOR_TOL[torch.bfloat16] or not torch.isfinite(got).all():
+            raise AssertionError("GAN preset: the fine-tuned generator through kernel A disagrees with the plain RDB")
+    del val_store
+    batch = gather(build_eval_device_store(trainer.dm.train_dataset, device=device), torch.arange(bs, device=device))
+    grads = generator_grads(g, batch, torch.bfloat16)
+    with plain_rdb(), plain_training():
+        plain_grads = generator_grads(g, batch, torch.bfloat16)
+        f32_grads = generator_grads(g, batch, torch.float32)
+    (k_all, k_per), (p_all, p_per), (k32_all, k32_per) = (
+        grad_err(grads, plain_grads), grad_err(plain_grads, f32_grads), grad_err(grads, f32_grads))
+    # against f32, the gradients through the kernels may be no further off
+    # than twice the plain versions' in bf16, or GRAD_TOL: over all and for
+    # each tensor (a bias whose gradient sums terms that cancel is far from
+    # f32 in bf16 on both sides)
+    k32_per["over all"], p_per["over all"] = k32_all, p_all
+    bad = {k: v for k, v in k32_per.items() if not v <= max(2 * p_per[k], GRAD_TOL)}
+    worst = max(k_per, key=k_per.get)
+    ratio = max(k32_per, key=lambda k: k32_per[k] / max(p_per[k], 1e-30))
+    print(f"# GAN preset's generator, parameter gradients on a train batch of {bs} x {lr}x{lr} (relative L2): "
+          f"against plain f32, kernels {k32_all:.3e} and plain bf16 {p_all:.3e} over all; kernels against plain "
+          f"bf16 {k_all:.3e} over all, worst tensor {k_per[worst]:.3e} ({worst}); the largest ratio of kernels to "
+          f"plain bf16 against f32 {k32_per[ratio] / max(p_per[ratio], 1e-30):.3f} ({ratio}: {k32_per[ratio]:.3e} "
+          f"against {p_per[ratio]:.3e}); past max(2 x plain bf16, {GRAD_TOL:g}): {bad or 'none'}")
+    if bad:
+        raise AssertionError("GAN preset: the generator's gradients through B1, B2 and C are further from f32 than "
+                             "the plain versions' in bf16")
+    del batch, grads, plain_grads, f32_grads
+
+    # the fit through the plain versions, and the noise of that comparison:
+    # the plain fit again, and from a start moved by one bf16 rounding step;
+    # the same from a seeded generator, whose D does not saturate by step 4
+    seeded = root / "seeded.ckpt"
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in
+                               seeded_esrgan(torch.device("cpu"), torch.float32).state_dict().items()}}, seeded)
+    starts = {"checkpoint": best_ckpt, "seeded": seeded}
+    moved = {start: moved_ckpt(w, root / f"{start}_moved.ckpt") for start, w in starts.items()}
+    plan = [("checkpoint", "plain", best_ckpt), ("checkpoint", "plain again", best_ckpt),
+            ("checkpoint", "plain, start moved", moved["checkpoint"]), ("seeded", "kernels", seeded),
+            ("seeded", "plain", seeded), ("seeded", "plain, start moved", moved["seeded"])]
+    fits = {("checkpoint", "kernels"): r}
+    for i, (start, tag, weights) in enumerate(plan):
+        with contextlib.ExitStack() as stack:
+            if tag.startswith("plain"):
+                stack.enter_context(plain_rdb())
+                stack.enter_context(plain_training())
+            f = fit_entry_point(device, root, f"gan_{i}", overrides(weights), eu_tables)
+        fits[start, tag] = dict(train=f["train"], val=f["val"], wall=f["wall"])
+        del f
+    errs = {}
+    for start in starts:
+        for k in GAN_KEYS:
+            rows = "val" if k.startswith("val/") else "train"
+            print(f"#   {start} {k}: " + "; ".join(f"{tag} {['%.6f' % x[k] for x in fits[s_, tag][rows]]}"
+                                                for s_, tag in fits if s_ == start))
+        for tag in ("kernels", "plain again", "plain, start moved"):
+            if (start, tag) in fits:
+                e = trajectory_err(fits[start, tag], fits[start, "plain"])
+                errs[start, tag] = max(e.values())
+                print(f"# GAN preset from {start}, {tag} vs plain: worst relative " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in e.items()) + f"; over all {errs[start, tag]:.2e}")
+    worst = errs["checkpoint", "kernels"]
+    print(f"# GAN preset kernels vs plain from phase 13's checkpoint: loss_G, loss_D per step and val/rmse, "
+          f"val/loss_G per validation within {worst:.2e} (relative; tol {GAN_LOSS_TOL:g}); graft {copied} of "
+          f"{total} tensors; the plain run {fits['checkpoint', 'plain']['wall']:.3f} s")
+    if not worst <= GAN_LOSS_TOL:
+        raise AssertionError("the GAN preset through the kernels disagrees with the plain versions")
+    sps = r["train"][-1]["train/samples_per_sec"]
+    print(f"# GAN preset samples/s: {sps:.2f} at step {steps} (batch {bs}, HR {EU_HR}); peak device memory "
+          f"{r['peak_gb']:.3f} GB ({card})")
+    return dict(launches=r["launches"], samples_per_sec=sps, peak_gb=r["peak_gb"])
+
+
+def phase_family_pretrain(device, root: Path, card: str) -> dict:
+    """Phase D: DRLN and RFB-ESRGAN pre-training through ``cli.train.run`` on
+    the composed ``esrgan_pre_training`` experiment with the generator
+    switched, at their published widths and batch 192: 2 epochs of one step
+    over the same 192 tiles (a synthetic set of 64 per stage and variable),
+    so the step-2 loss reads the first update, and one validation."""
+    from climsr_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    n = TRAIN_N // 3
+    tables = make_synthetic_dataset(root / "ds_d", n_tiles_per_stage=(n, n, n), seed=2, write_index=False)
+    out = {}
+    for name in ("drln", "rfb_esrgan"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = fit_entry_point(device, root, f"pre_{name}", [
+            "experiment=esrgan_pre_training", f"generator={name}", f"training.generator_type={name}",
+            f"datamodule.cfg.data_path={root / 'ds_d'}", "trainer.max_epochs=2", "trainer.check_val_every_n_epoch=2",
+            "training.run_test_after_fit=false"], tables, profile=True)
+        bs = r["cfg"]["training"]["batch_size"]
+        report_fit(f"{name} pre-training (batch {bs})", r, "train/loss", card)
+        losses = [x["train/loss"] for x in r["train"]]
+        if bs != TRAIN_N or len(losses) != 2 or len(r["val"]) != 1 or not losses[-1] < losses[0]:
+            raise AssertionError(f"{name} pre-training: expected 2 steps of {TRAIN_N} with a falling loss and one "
+                                 f"validation, got batch {bs}, {losses}, {len(r['val'])}")
+        if type(r["trainer"].g_model).__name__ != {"drln": "DRLN", "rfb_esrgan": "RFBESRGANGenerator"}[name]:
+            raise AssertionError(f"{name} pre-training built {type(r['trainer'].g_model).__name__}")
+        out[name] = dict(samples_per_sec=r["train"][-1]["train/samples_per_sec"], peak_gb=r["peak_gb"])
+        print(f"# {name} pre-training samples/s: {out[name]['samples_per_sec']:.2f} at the last step, batch {bs}; "
+              f"peak device memory {r['peak_gb']:.3f} GB ({card})")
+        del r
+    return out
 
 
 def main() -> int:
@@ -1167,6 +1661,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
+        from climsr_tpu_torch.data.synthetic import make_synthetic_dataset
         from climsr_tpu_torch.ops import cuda_lib, head, head_bwd, rdb
     except ImportError as e:
         print(f"chip_smoke: the climsr_tpu_torch package is not beside this script ({e})", file=sys.stderr)
@@ -1249,8 +1744,24 @@ def main() -> int:
         print(f"# {name} at gc={GC_REF}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e} ({card})")
 
-    # 13. the training entry point: composed config, data path, Trainer, checkpoints
-    trainer = phase_trainer(device, pretrain["ms"], card)
+    with tempfile.TemporaryDirectory(prefix="climsr_smoke_") as tmp:
+        root = Path(tmp)
+        # 13. the training entry point: composed config, data path, Trainer, checkpoints
+        trainer = phase_trainer(device, pretrain["ms"], card, root)
+
+        # A. the RCAN, DRLN and RFB-ESRGAN families at full width: card against CPU, bf16 against f32
+        phase_families(device, card)
+        # B. RCAN: pre-training, europe-extent fine-tuning, europe-extent inference, through the entry points
+        t = time.perf_counter()
+        eu_tables = make_synthetic_dataset(root / "eu", n_tiles_per_stage=EU_TILES, europe_extent=True, seed=1,
+                                           write_index=False)
+        print(f"# europe-extent synthetic set: {EU_TILES} frames of {EU_HR}x{EU_HR} per stage and variable, "
+              f"{time.perf_counter() - t:.3f} s")
+        phase_rcan(device, root, trainer["tables"], eu_tables, card)
+        # C. the ESRGAN GAN fine-tune preset with its RFB-ESRGAN discriminator: kernels B1, B2, C and A
+        phase_gan_preset(device, root, eu_tables, trainer["best_ckpt"], card)
+        # D. DRLN and RFB-ESRGAN pre-training through the entry point
+        phase_family_pretrain(device, root, card)
 
     # 14. results
     # A, B1, B2 and C: their launches on this slice's main path, the training

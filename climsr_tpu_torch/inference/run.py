@@ -56,7 +56,7 @@ def load_generator(
     file, in bf16 on ``device`` (``None`` means ``cuda``), in eval mode."""
     kwargs = {k: v for k, v in (generator_kwargs or {}).items() if k != "name"}
     model = create_generator(generator_type, dtype=torch.bfloat16, device=device, **kwargs)
-    model.load_state_dict(load_generator_checkpoint(pretrained_model), strict=True)
+    model.load_state_dict(load_generator_checkpoint(pretrained_model, generator_type), strict=True)
     return model
 
 

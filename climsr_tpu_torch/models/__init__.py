@@ -1,11 +1,12 @@
 # -*- coding: utf-8 -*-
 """Model registry: name -> ``nn.Module``, plus generator-call dispatch.
 
-The port of ``climsr_tpu.models``. It carries the ESRGAN and SRCNN generators
-and the ESRGAN discriminator; the other families are later items of
-``ROADMAP.md`` and raise until they land.
-Call signature (reference ``climsr/core/task.py:235-239``): ``generator(x)``
-for srcnn, ``generator(x, elev, mask)`` for the fusion generators.
+The port of ``climsr_tpu.models``: the five generator families (SRCNN,
+ESRGAN, RCAN, DRLN, RFB-ESRGAN) and the two discriminators (ESRGAN's and
+RFB-ESRGAN's). Call signature (reference ``climsr/core/task.py:235-239``):
+``generator(x, elev, mask)`` for the fusion generators (ESRGAN, RCAN),
+``generator(x)`` for the rest, as the JAX registry routes DRLN and
+RFB-ESRGAN as single-input generators.
 """
 from __future__ import annotations
 
@@ -18,25 +19,24 @@ from torch import nn
 import climsr_tpu_torch.consts as consts
 from climsr_tpu_torch.device import DeviceLike, resolve_device
 from climsr_tpu_torch.models.discriminator import Discriminator
+from climsr_tpu_torch.models.drln import DRLN
 from climsr_tpu_torch.models.esrgan import ESRGANGenerator
+from climsr_tpu_torch.models.rcan import RCAN
+from climsr_tpu_torch.models.rfb_esrgan import RFBESRGANDiscriminator, RFBESRGANGenerator
 from climsr_tpu_torch.models.srcnn import SRCNN
 
 GENERATORS = {
     consts.models.srcnn: SRCNN,
     consts.models.esrgan: ESRGANGenerator,
+    consts.models.rfb_esrgan: RFBESRGANGenerator,
+    consts.models.rcan: RCAN,
+    consts.models.drln: DRLN,
 }
 
-# families of the JAX package that this port does not carry yet
-_NOT_PORTED = {
-    consts.models.rcan: "ROADMAP.md, queue 1: other generators (RCAN)",
-    consts.models.drln: "ROADMAP.md, queue 1: other generators (DRLN)",
-    consts.models.rfb_esrgan: "ROADMAP.md, queue 1: other generators (RFB-ESRGAN)",
-}
-
-DISCRIMINATORS = {"default": Discriminator, consts.models.esrgan: Discriminator}
-
-_DISCRIMINATORS_NOT_PORTED = {
-    consts.models.rfb_esrgan: "ROADMAP.md, queue 1, item 7: other generators (the RFB-ESRGAN discriminator)",
+DISCRIMINATORS = {
+    consts.models.esrgan: Discriminator,
+    consts.models.rfb_esrgan: RFBESRGANDiscriminator,
+    "default": Discriminator,
 }
 
 # Generators whose forward takes (x, elev, mask); the rest take (x,).
@@ -69,8 +69,6 @@ def create_generator(
       rounds its parameters to it at use, as the JAX package keeps float32
       params under a bf16 module ``dtype``.
     """
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"generator '{name}' is not ported yet: {_NOT_PORTED[name]}")
     if name not in GENERATORS:
         raise KeyError(f"Unknown generator '{name}'. Available: {sorted(GENERATORS)}")
     dev = resolve_device(device)
@@ -95,18 +93,18 @@ def create_discriminator(
 ) -> nn.Module:
     """Build a discriminator by registry name (``climsr_tpu/models/__init__.py:66-72``).
 
-    Config keys the module does not take are dropped. The parameters and the
+    Config keys the module does not take are dropped: ``hr_size``, which the
+    Trainer passes, fixes the ESRGAN discriminator's fc1 fan-in (default 128)
+    and means nothing to the RFB-ESRGAN one, which pools to 14x14 whatever
+    the input size. The parameters and the
     BatchNorm buffers are float32 and ``dtype`` (default float32) is the
     compute dtype, kept as ``module.compute_dtype``: the GAN step casts D's
     inputs to it and every conv and linear rounds its parameters to it at
     use. ``generator`` draws torch's default init (else zeros, to be loaded).
     ``train`` sets train mode (BatchNorm on batch statistics, running stats
     updated) or eval mode. The module lands on ``device`` (``None`` means
-    ``cuda``) in ``torch.channels_last``. ``hr_size`` (default 128) fixes fc1's
-    fan-in.
+    ``cuda``) in ``torch.channels_last``.
     """
-    if name in _DISCRIMINATORS_NOT_PORTED:
-        raise NotImplementedError(f"discriminator '{name}' is not ported yet: {_DISCRIMINATORS_NOT_PORTED[name]}")
     if name not in DISCRIMINATORS:
         raise KeyError(f"Unknown discriminator '{name}'. Available: {sorted(DISCRIMINATORS)}")
     dev = resolve_device(device)

@@ -33,7 +33,7 @@ import json
 import logging
 import math
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -133,12 +133,13 @@ def load_checkpoint(path, map_location: Union[str, torch.device] = "cpu") -> Dic
     return torch.load(checkpoint_file(path), map_location=map_location, weights_only=True)
 
 
-def restore_generator_params(path, model: torch.nn.Module) -> None:
+def restore_generator_params(path, model: torch.nn.Module) -> Tuple[int, int]:
     """Generator-only restore for fine-tuning (``cli/train.py:112-121``): copy
     into ``model`` every tensor of the checkpoint's generator whose name and
     shape match, keep the fresh initialization for the rest (rcan.py:195-219's
     lenient tail handling). ``path``: a ``.ckpt`` (the port's or the
-    reference's), a plain ``state_dict`` file, or a checkpoint directory."""
+    reference's), a plain ``state_dict`` file, or a checkpoint directory.
+    Returns (tensors copied, tensors of ``model``'s ``state_dict``)."""
     source = load_generator_checkpoint(checkpoint_file(path))
     own = model.state_dict()
     copied = {k: v for k, v in source.items() if k in own and own[k].shape == v.shape}
@@ -146,3 +147,4 @@ def restore_generator_params(path, model: torch.nn.Module) -> None:
         for k, v in copied.items():
             own[k].copy_(v)
     logger.info("Generator restore: %d tensors copied, %d kept fresh", len(copied), len(own) - len(copied))
+    return len(copied), len(own)

@@ -271,9 +271,11 @@ class Trainer:
         else:
             self.state = TrainState.create(self.g_model, self.g_tx)
 
-        # fine-tune: generator-only weight graft (cli/train.py:112-121)
+        # fine-tune: generator-only weight graft (cli/train.py:112-121);
+        # (tensors copied, tensors of the generator)
+        self.graft = None
         if training_cfg.model_weights:
-            restore_generator_params(training_cfg.model_weights, self.g_model)
+            self.graft = restore_generator_params(training_cfg.model_weights, self.g_model)
 
         # ---- steps ---------------------------------------------------------
         step_kwargs = dict(compute_dtype=self.compute_dtype, augment=self._augment_kwargs,

@@ -110,7 +110,8 @@ def test_discriminator_matches_jax_in_train_and_eval_mode(rng):
 def test_discriminator_keys_are_the_reference_checkpoint_keys(tmp_path):
     """A reference PL ``.ckpt``'s ``discriminator.`` part loads with
     strict=True; fc1's fan-in at 128 px is the reference's 8192; an input of
-    another size raises."""
+    another size raises. The RFB-ESRGAN discriminator's own ``.ckpt`` loads
+    with strict=True too."""
     d = create_discriminator("esrgan", device="cpu", generator=torch.Generator().manual_seed(0))
     assert d.classification[0].in_features == 8192
     keys = set(d.state_dict())
@@ -126,8 +127,12 @@ def test_discriminator_keys_are_the_reference_checkpoint_keys(tmp_path):
     assert torch.equal(fresh.classification[0].weight, d.classification[0].weight)
     with pytest.raises(ValueError, match="128x128"):
         fresh(torch.zeros(1, 1, 64, 64))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        create_discriminator("rfb_esrgan", device="cpu")
+    # the RFB-ESRGAN discriminator builds (hr_size dropped) and reads its own .ckpt
+    rfb = create_discriminator("rfb_esrgan", device="cpu", generator=torch.Generator().manual_seed(1), hr_size=128)
+    torch.save({"state_dict": {f"discriminator.{k}": v for k, v in rfb.state_dict().items()}}, tmp_path / "rfb.ckpt")
+    rfb_fresh = create_discriminator("rfb_esrgan", device="cpu")
+    rfb_fresh.load_state_dict(load_discriminator_checkpoint(tmp_path / "rfb.ckpt"), strict=True)
+    assert torch.equal(rfb_fresh.fc[0].weight, rfb.fc[0].weight)
     torch.save({"state_dict": {"generator.x": torch.zeros(1)}}, tmp_path / "g.ckpt")
     with pytest.raises(KeyError):
         load_discriminator_checkpoint(tmp_path / "g.ckpt")

@@ -39,7 +39,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for name in ("config.compose", "config.yaml_subset", "config.instantiator", "data.tables", "data.synthetic",
                  "data.climate_dataset", "data.datamodule", "data.pipeline", "ops.augment", "utils.core",
                  "utils.logging", "training.checkpoint", "training.callbacks", "training.loop", "cli.train",
-                 "cli.inference"):
+                 "cli.inference", "ops.pixel_shuffle", "models.rcan", "models.drln", "models.rfb_esrgan"):
         assert f"climsr_tpu_torch.{name}" in MODULES
 
 

@@ -170,8 +170,14 @@ def test_esrgan_on_cpu_never_counts_a_launch(rng):
 
 @pytest.mark.parametrize("name", ["rcan", "drln", "rfb_esrgan"])
 def test_unported_generators_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_generator(name, device="cpu")
+    """The families ``ROADMAP.md`` queue 1 item 7 listed are ported now: each
+    builds from the registry at its ``conf/generator`` defaults, its
+    JAX-only config keys dropped (``tests/test_torch_generators.py`` holds
+    them against the JAX package)."""
+    model = create_generator(name, device="cpu", in_channels=3, out_channels=1, scaling_factor=4, remat=True,
+                             use_pallas=None)
+    assert sum(p.numel() for p in model.parameters()) > 0
+    assert next(model.parameters()).is_contiguous(memory_format=torch.channels_last)
 
 
 def test_create_generator_drops_jax_only_config_keys():
