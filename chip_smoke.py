@@ -155,6 +155,34 @@ D. DRLN and RFB-ESRGAN pre-training through ``cli.train.run`` on the composed
    ``esrgan_pre_training`` experiment with ``generator=<name>``: 2 epochs of
    one step of 192 over the same 192 tiles and one validation; finite
    losses, the step-2 loss below the step-1 loss; peak device memory,
+W. fault 1, the bf16 chain at nf other than 64: kernels A, B1, B2 and D
+   in bf16 at nf = 32, 48, 96, 128 and gc = 16, 32 against their plain
+   versions at the training shape (192 x nf x 32 x 32) and a ragged one (3 x
+   nf x 29 x 45), tolerances of phases 3 and 6; A, B1, B2 timed at the
+   training shape beside their bounds, nf=64's beside phase 3's and phase
+   6's times of that shape; a bf16 ESRGAN at nf=32, nb=11, gc=16 through 2
+   pre-training steps at batch 192 against the plain versions (as phase 7),
+L. the LR range test, ``training.lr_find_only=true`` on phase 13's
+   experiment and set: 100 steps of batch 192, exactly 33 B1 + 33 B2 + 1 C a
+   step; ``lr_find.csv``; the same test through the plain versions, the
+   losses held over the descent (to the plain run's smoothed minimum) at
+   phase 7's trajectory tolerance,
+R. ``callbacks=[model_pruning]`` and then ``[lottery_ticket]`` on phase 13's
+   experiment (2 epochs of 2 steps): the weights' sparsity 50% and then 75%,
+   the pruned weights still exactly 0 after the next steps, the fit against
+   the same fit through the plain versions, the pruned generator through A
+   against the plain RDB on a validation batch,
+Q. ``profiler=pytorch`` (``profile_ops.txt`` lists A, B1/B2's dX, B2's dW
+   and C by symbol with device times) and ``profiler=jax`` (the fit's Chrome
+   trace parses as JSON and holds those kernels' events),
+H. ``hparams_search=srcnn_optuna`` through ``cli.train.run_hparams_search``:
+   3 trials of 1 epoch of at most 2 steps on phase 13's set (the
+   resolutions dimension dropped: the set holds 2.5m tiles only);
+   ``trials.csv`` and ``best.yaml`` printed, ``best.yaml`` read back,
+P. ``trainer.auto_scale_batch_size=power`` and then ``binsearch`` (the
+   Trainer alone): each trial's batch, peak and verdict, the chosen batch,
+   the next doubling shown not to fit, one real train step at the chosen
+   batch; the launches of every path of W, L, R, Q, H and P printed,
 14. one JSON line with every kernel (the launches of A, B1, B2 and C are
    phase 13's, and A's times, bound and error are per launch over phase 13's
    eval shapes, from phase 3), the card line, then the device line as the
@@ -168,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -727,9 +756,10 @@ def train_batch(n=TRAIN_N, lr=TRAIN_LR, scale=4) -> dict:
             "min": torch.full((n,), -30.0), "max": torch.full((n,), 40.0), "original_data": 35.0 * hr + 5.0}
 
 
-def phase_pretrain(device, nb=NB, gc=GC, steps=STEPS) -> dict:
-    """Pre-training at nf=64 and (nb, gc) through the kernels and through the
-    plain versions, ``steps`` steps each, then an eval step."""
+def phase_pretrain(device, nb=NB, gc=GC, steps=STEPS, nf=NF) -> dict:
+    """Pre-training at (nf, nb, gc) through the kernels and through the
+    plain versions, ``steps`` steps each, then an eval step. The loss must
+    fall over more than two steps."""
     from climsr_tpu_torch.config.schemas import OptimizerConfig, SchedulerConfig
     from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0
     from climsr_tpu_torch.ops.rdb import fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save
@@ -742,12 +772,12 @@ def phase_pretrain(device, nb=NB, gc=GC, steps=STEPS) -> dict:
     batch = {k: v.to(device) for k, v in train_batch().items()}
     lr = 1e-4
     sched = SchedulerConfig(name="one_cycle_schedule", max_lr=lr, num_training_steps=steps)
-    widths = f"nf={NF} nb={nb} gc={gc}"
+    widths = f"nf={nf} nb={nb} gc={gc}"
     counters = (fused_rdb_fwd_save, fused_rdb_bwd, conv9_dx_c0, fused_rdb)
 
     def run(tag: str):
         model = create_generator("esrgan", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
-                                 device=device, train=True, in_channels=3, out_channels=1, nf=NF, nb=nb, gc=gc)
+                                 device=device, train=True, in_channels=3, out_channels=1, nf=nf, nb=nb, gc=gc)
         tx = build_optimizer(OptimizerConfig(name="adamw", lr=lr, weight_decay=1e-4),
                              resolve_schedule(sched, lr, steps), b1_schedule=resolve_momentum_schedule(sched, steps),
                              device=device)
@@ -778,7 +808,7 @@ def phase_pretrain(device, nb=NB, gc=GC, steps=STEPS) -> dict:
     if launches != expected:
         raise AssertionError(f"pre-training {widths}: expected launches B1, B2, C, A = {expected}, "
                              f"counted {launches}")
-    if not losses[-1] < losses[0]:
+    if steps > 2 and not losses[-1] < losses[0]:
         raise AssertionError(f"pre-training {widths}: the loss did not decrease ({losses[0]} -> {losses[-1]})")
     # the fusion head's backward: kernel C and the wrapper's other device ops
     device_breakdown(lambda: step(state, batch), what=f"pre-training step {widths}", under="FusionConv1Backward")
@@ -1121,7 +1151,7 @@ def fit_entry_point(device, root: Path, tag: str, overrides: list, tables: dict,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     (run_dir,) = (root / tag / "outputs" / "runs" / cfg["training"]["generator_type"]).iterdir()
-    rows = metric_rows(run_dir / "metrics.csv")
+    rows = metric_rows(run_dir / "metrics.csv") if (run_dir / "metrics.csv").exists() else []  # none without a fit
     peak_gb, launches = torch.cuda.max_memory_allocated() / 1e9, {k: c.launches for k, c in counters.items()}
     if profile and device.type == "cuda":
         tr = trainers[0]
@@ -1655,6 +1685,352 @@ def phase_family_pretrain(device, root: Path, card: str) -> dict:
     return out
 
 
+# ---- phases W, L, R, Q, H, P: fault 1 and the training entry point's services ----
+
+# phase W: the bf16 chain's other widths (fault 1)
+WIDTH_NF, WIDTH_GC = (32, 48, 96, 128), (16, 32)
+WIDTH_NB = 11  # phase W's ESRGAN at nf=32: the flagship's depth and growth width
+# phase L: the LR range test's steps (lr_range_test's default)
+LR_FIND_STEPS = 100
+# phase Q: the port's kernels by their symbols in the profiler's table and trace (A and B1, B2's dX and dW passes, C)
+PROFILE_SYMBOLS = ("rdb_fwd_bf16_kernel", "rdb_bwd_dx_bf16_kernel", "rdb_wgrad_bf16_kernel", "conv9_dx_c0_bf16_kernel")
+# phase P: the probe's headroom (Trainer._auto_scale_batch_size), of the card's memory
+PROBE_HEADROOM = 0.9
+
+
+def counts(counters: dict) -> dict:
+    return {k: c.launches for k, c in counters.items()}
+
+
+def zero_counts(counters: dict) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def phase_widths(device, card: str, phase3: dict, phase6: dict) -> dict:
+    """Fault 1: kernels A, B1, B2 and D in bf16 at nf in WIDTH_NF and gc in
+    WIDTH_GC against their plain versions at the training shape (192 x nf x
+    32 x 32) and a ragged one (3 x nf x 29 x 45), with the tolerances of
+    phases 3 and 6; A, B1, B2 timed at the training shape beside their bounds
+    at those widths and at nf=64 (gc=16, 32), where phase 3's and phase 6's
+    times of the same shape stand beside them; then a bf16 ESRGAN at nf=32
+    (nb=11, gc=16) through 2 pre-training steps at batch 192 against the
+    plain versions, as in phase 7. Returns the numbers by (nf, gc)."""
+    from climsr_tpu_torch.ops.rdb import (
+        fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save, fused_rdb_nhwc, pack_rdb_weights, rdb_bwd_reference,
+        rdb_fwd_save_reference, rdb_reference,
+    )
+
+    dtype = torch.bfloat16
+    out = {}
+    for nf in sorted(WIDTH_NF + (NF,)):
+        for gc in WIDTH_GC:
+            for n, h, w in ((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45)):
+                x, x0, weights = rdb_inputs(n, h, w, dtype, device, nf=nf, gc=gc)
+                packed = pack_rdb_weights(weights, dtype)
+                tag = f"{n}x{nf}x{h}x{w} gc={gc} bfloat16"
+                gen = torch.Generator(device="cpu").manual_seed(2)
+                g = (0.01 * torch.randn(n, nf, h, w, generator=gen)).to(device, dtype).contiguous(
+                    memory_format=torch.channels_last)  # an upstream gradient's scale, as phase 6's
+                if nf != NF:  # nf=64 is phases 3, 6 and 8's
+                    errs = {}
+                    for res in (None, x0):
+                        errs[f"A x0={res is not None}"] = rel_err(fused_rdb(x, weights, res, packed),
+                                                                  rdb_reference(x, weights, res))
+                    hwio = [t for wt, bs in weights for t in (wt.permute(2, 3, 1, 0), bs)]
+                    errs["D"] = rel_err(fused_rdb_nhwc(x.permute(0, 2, 3, 1), *hwio),
+                                        rdb_reference(x, weights).permute(0, 2, 3, 1))
+                    got, feat = fused_rdb_fwd_save(x, weights, None, packed)
+                    ref, ref_feat = rdb_fwd_save_reference(x, weights)
+                    errs["B1 out"], errs["B1 feat"] = rel_err(got, ref), rel_err(feat, ref_feat)
+                    for res, (gy, gx) in ((None, (0.2, 1.0)), (x0, (0.04, 0.2))):
+                        dx, dws, dbs = fused_rdb_bwd(feat, g, weights, gy, gx)
+                        rdx, rdws, rdbs = rdb_bwd_reference(feat, g, weights, gy, gx)
+                        errs[f"B2 ({gy}, {gx})"] = max((rel_err(a, b) for a, b in zip([dx, *dws, *dbs],
+                                                                                     [rdx, *rdws, *rdbs])),
+                                                       key=lambda e: e[1])
+                    torch.cuda.synchronize()
+                    print(f"# W {tag}: relative err " + ", ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+                          + f" (tol A, D {KERNEL_TOL[dtype]:g}; B1, B2 {TRAIN_KERNEL_TOL[dtype]:g})")
+                    for k, (_, r) in errs.items():
+                        tol = TRAIN_KERNEL_TOL[dtype] if k.startswith("B") else KERNEL_TOL[dtype]
+                        if not r <= tol:
+                            raise AssertionError(f"W {tag}: {k} disagrees with its plain version ({r:.3e})")
+                if (n, h, w) != (TRAIN_N, TRAIN_LR, TRAIN_LR):
+                    continue
+                _, feat = fused_rdb_fwd_save(x, weights, None, packed)
+                px, total, macs = n * h * w, nf + 4 * gc, rdb_macs_per_px(nf, gc)
+                wbytes = 4 * macs + 4 * (4 * gc + nf)
+                bounds = {"A": rdb_bound_ms(x, False, nf, gc),
+                          "B1": bound(2.0 * macs * px, px * 2 * (2 * nf + total) + wbytes, dtype),
+                          "B2": bound(4.0 * macs * px, px * 2 * (total + 2 * nf) + wbytes, dtype)}
+                runs = {"A": (lambda: fused_rdb(x, weights, None, packed), lambda: rdb_reference(x, weights)),
+                        "B1": (lambda: fused_rdb_fwd_save(x, weights, None, packed),
+                               lambda: rdb_fwd_save_reference(x, weights)),
+                        "B2": (lambda: fused_rdb_bwd(feat, g, weights, 0.2, 1.0),
+                               lambda: rdb_bwd_reference(feat, g, weights, 0.2, 1.0))}
+                row = {k: dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), bound_ms=bounds[k][0],
+                               bound_by=bounds[k][1]) for k, (kernel, plain) in runs.items()}
+                out[nf, gc] = row
+                beside = ""
+                if nf == NF:  # the same shape's times from phase 3 (A, at gc=16) and phase 6 (B1, B2)
+                    ph3 = phase3.get(gc)
+                    beside = ((f"; beside phase 3's A {ph3['ms']:.4f} ms" if ph3 else "")
+                              + f"; beside phase 6's B1 {phase6[gc]['fused_rdb_fwd_save']['ms']:.4f}, "
+                              f"B2 {phase6[gc]['fused_rdb_bwd']['ms']:.4f} ms")
+                print(f"# W {tag} times: " + ", ".join(
+                    f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']})"
+                    for k, r in row.items()) + beside + f" ({card})")
+    # a bf16 ESRGAN at nf=32 trains through the kernels: this phase's path
+    pre = phase_pretrain(device, nb=WIDTH_NB, gc=16, steps=2, nf=32)
+    out["launches"] = dict(A=3 * WIDTH_NB, B1=pre["launches"]["fused_rdb_fwd_save"],
+                           B2=pre["launches"]["fused_rdb_bwd"], C=pre["launches"]["conv9_dx_c0"], D=0, E=0, F=0)
+    print(f"# W pre-training step nf=32 nb={WIDTH_NB} gc=16, batch {TRAIN_N}: {pre['ms']:.3f} ms/step through the "
+          f"kernels, {pre['plain_ms']:.3f} plain ({card})")
+    out["pretrain"] = pre
+    return out
+
+
+def phase_lr_find(device, root: Path, tables: dict, card: str) -> dict:
+    """L: ``training.lr_find_only=true`` on phase 13's experiment and set
+    (``lr_range_test``'s 100 steps of batch 192, the tile store on the card,
+    the fixed draw of step 0): exactly 3 x nb B1 + 3 x nb B2 + 1 C a step and
+    no A; ``lr_find.csv`` written; the same test through the plain versions,
+    the loss histories compared step by step (phase 7's trajectory
+    tolerance) and the suggestions printed."""
+    overrides = ["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+                 "training.lr_find_only=true"]
+
+    def sweep(tag: str) -> tuple:  # (the run, lrs, losses, smoothed losses)
+        r = fit_entry_point(device, root, tag, overrides, tables)
+        path = r["run_dir"] / "lr_find.csv"
+        if not path.exists():
+            raise AssertionError(f"L {tag}: no lr_find.csv in {r['run_dir']}")
+        rows = [line.split(",") for line in path.read_text().splitlines()[1:]]
+        lrs, losses, smoothed = ([float(c[i]) for c in rows] for i in range(3))
+        print(f"# L {tag}: {len(rows)} steps, suggestion {r['hp']:.4g}, wall {r['wall']:.3f} s, losses "
+              f"{['%.5f' % v for v in losses[::10]]} (every 10th), launches {r['launches']}")
+        if not np.isfinite(r["hp"]) or not rows:
+            raise AssertionError(f"L {tag}: no suggestion or no steps")
+        return r, lrs, losses, smoothed
+
+    r, lrs, losses, _ = sweep("lr_find")
+    # a sweep that stops early ran one step more than it recorded: the one whose loss stopped it
+    steps, nb = len(lrs) + (len(lrs) < LR_FIND_STEPS), r["cfg"]["generator"]["nb"]
+    want = dict(A=0, B1=3 * nb * steps, B2=3 * nb * steps, C=steps, D=0, E=0, F=0)
+    if r["launches"] != want:
+        raise AssertionError(f"L: expected launches {want} for {steps} steps, counted {r['launches']}")
+    with plain_rdb(), plain_training():
+        _, plain_lrs, plain_losses, plain_smoothed = sweep("lr_find_plain")
+    # held over the descent, up to the plain run's smoothed minimum: past it the
+    # sweep diverges by design (lr up to 1), and any rounding difference grows
+    # with lr (two plain formulations of the gradient on the CPU part by 20% at
+    # lr 1); the rest is printed
+    common = min(len(losses), len(plain_losses))
+    held = int(np.argmin(plain_smoothed)) + 1
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses[:common], plain_losses[:common])]
+    worst = int(np.argmax(errs[:held]))
+    print(f"# L kernels vs plain: loss within {errs[worst]:.2e} over steps 1-{held} (relative, worst at step "
+          f"{worst + 1}, lr {lrs[worst]:.3g}; tol {TRAJECTORY_TOL:g}; the plain smoothed minimum at lr "
+          f"{plain_lrs[held - 1]:.3g}), {max(errs[held:], default=0.0):.2e} over steps {held + 1}-{common}; lrs "
+          f"equal: {lrs[:common] == plain_lrs[:common]}")
+    if not errs[worst] <= TRAJECTORY_TOL or lrs[:common] != plain_lrs[:common]:
+        raise AssertionError("L: the LR range test through the kernels disagrees with the plain versions")
+    return dict(launches=r["launches"], steps=steps, suggestion=r["hp"])
+
+
+def phase_pruning(device, root: Path, tables: dict, card: str) -> dict:
+    """R: ``callbacks=[model_pruning]`` and then ``[lottery_ticket]`` on phase
+    13's experiment (2 epochs of 2 steps, a validation each epoch): the
+    weights' measured sparsity 50% after epoch 1 and 75% after epoch 2, the
+    weights pruned at epoch 1 still exactly 0 after epoch 2's steps; the fit
+    against the same fit through the plain versions; the pruned generator
+    through kernel A against the plain RDB on a validation batch (a stale
+    packing of the pruned weights would show here)."""
+    from climsr_tpu_torch.data.pipeline import build_eval_device_store, gather
+    from climsr_tpu_torch.models import apply_generator_batch
+    from climsr_tpu_torch.training.callbacks import ModelPruningCallback
+
+    result = dict(launches=dict.fromkeys(kernel_counters(), 0))
+    for name in ("model_pruning", "lottery_ticket"):
+        overrides = ["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+                     f"callbacks=[{name}]", f"trainer.max_epochs={TRAINER_EPOCHS}", "training.run_test_after_fit=false"]
+        record = []
+        prune = ModelPruningCallback.on_train_epoch_end
+
+        def watched(self, trainer, epoch):
+            kept = None
+            if self._masks is not None:  # the last epoch's masks after this epoch's steps
+                kept = all(bool((p.detach()[~torch.from_numpy(self._masks[k]).to(p.device)] == 0).all())
+                           for k, p in trainer.g_model.named_parameters() if k in self._masks)
+            prune(self, trainer, epoch)
+            ws = [p.detach() for p in trainer.g_model.parameters() if p.ndim >= 2]
+            zeros = sum(int((w == 0).sum()) for w in ws) / sum(w.numel() for w in ws)
+            record.append(dict(epoch=epoch, measured=zeros, reported=self.sparsity, kept_zero=kept))
+
+        def fit(tag: str) -> dict:
+            record.clear()
+            ModelPruningCallback.on_train_epoch_end = watched
+            try:
+                r = fit_entry_point(device, root, tag, overrides, tables)
+            finally:
+                ModelPruningCallback.on_train_epoch_end = prune
+            report_fit(f"R {tag}", r, "train/loss", card)
+            print(f"# R {tag} sparsity after each epoch: {record}")
+            wants = [1 - (1 - 0.5) ** (e + 1) for e in range(TRAINER_EPOCHS)]
+            if [round(x["measured"], 3) for x in record] != [round(v, 3) for v in wants] or not all(
+                    x["kept_zero"] for x in record[1:]):
+                raise AssertionError(f"R {tag}: expected sparsity {wants} with pruned weights kept at 0, got {record}")
+            return r
+
+        r = fit(name)
+        nb, steps = r["cfg"]["generator"]["nb"], len(r["train"])
+        vbs = r["cfg"]["datamodule"]["cfg"]["validation_batch_size"]
+        evals = TRAINER_EPOCHS * -(-len(r["dm"].val_dataset) // vbs)
+        want = dict(A=3 * nb * evals, B1=3 * nb * steps, B2=3 * nb * steps, C=steps, D=0, E=0, F=0)
+        if r["launches"] != want:
+            raise AssertionError(f"R {name}: expected launches {want}, counted {r['launches']}")
+        with plain_rdb(), plain_training():
+            plain = fit(f"{name}_plain")
+        pairs = [(a["train/loss"], b["train/loss"]) for a, b in zip(r["train"], plain["train"])]
+        pairs += [(a["val/rmse"], b["val/rmse"]) for a, b in zip(r["val"], plain["val"])]
+        traj = max(abs(a - b) / abs(b) for a, b in pairs)
+        store = build_eval_device_store(r["dm"].val_dataset, device=device)
+        batch = gather(store, torch.arange(min(TRAIN_N, len(r["dm"].val_dataset)), device=device))
+        model = r["trainer"].g_model
+        with torch.inference_mode():
+            got = apply_generator_batch("esrgan", model, batch, torch.bfloat16)
+            with plain_rdb():
+                ref = apply_generator_batch("esrgan", model, batch, torch.bfloat16)
+        gen_err = rel_err(got, ref)[1]
+        print(f"# R {name} kernels vs plain: train/loss and val/rmse within {traj:.2e} (tol {TRAJECTORY_TOL:g}); the "
+              f"pruned generator through A on {len(batch['hr'])} val tiles {gen_err:.3e} "
+              f"(tol {GENERATOR_TOL[torch.bfloat16]:g})")
+        if not traj <= TRAJECTORY_TOL or not gen_err <= GENERATOR_TOL[torch.bfloat16]:
+            raise AssertionError(f"R {name}: the pruned run through the kernels disagrees with the plain versions")
+        result["launches"] = {k: v + r["launches"][k] for k, v in result["launches"].items()}
+    return result
+
+
+def phase_profilers(device, root: Path, tables: dict, card: str) -> dict:
+    """Q: ``profiler=pytorch`` and ``profiler=jax`` on phase 13's experiment
+    (2 epochs of 2 steps): ``profile_ops.txt`` lists the port's kernels (A,
+    B1 and B2's dX pass, B2's dW pass, C) by symbol with device times; the
+    ``jax`` preset's Chrome trace of the fit exists, parses as JSON and holds
+    those kernels' events."""
+    symbols = PROFILE_SYMBOLS
+    base = ["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+            f"trainer.max_epochs={TRAINER_EPOCHS}", "training.run_test_after_fit=false"]
+    r = fit_entry_point(device, root, "profiler_pytorch", base + ["profiler=pytorch"], tables)
+    table = (r["run_dir"] / "profile_ops.txt").read_text()
+    print("# Q profiler=pytorch, profile_ops.txt (epoch 0):\n" + "\n".join(f"#   {line}" for line in table.splitlines()))
+    found = {}
+    for sym in symbols:  # a row: name, total "<ms>ms", count, mean, share
+        times = [re.search(r"\s([0-9.]+)ms\s+[0-9]+\s", line) for line in table.splitlines() if sym in line]
+        found[sym] = sum(float(t.group(1)) for t in times if t)
+    print(f"# Q device ms by kernel in epoch 0: {found}; launches {r['launches']}")
+    if not all(v > 0 for v in found.values()):
+        raise AssertionError(f"Q: profile_ops.txt misses a kernel of the port or its device time: {found}")
+    j = fit_entry_point(device, root, "profiler_jax", base + ["profiler=jax"], tables)
+    path = j["run_dir"] / "profiles" / "trace.json"
+    trace = json.loads(path.read_text())
+    names = [e.get("name", "") for e in trace.get("traceEvents", [])]
+    hits = {sym: sum(sym in n for n in names) for sym in symbols}
+    print(f"# Q profiler=jax: {path.name} {path.stat().st_size / 1e6:.3f} MB, {len(names)} events; kernel events "
+          f"{hits}; launches {j['launches']}")
+    if not all(hits.values()):
+        raise AssertionError(f"Q: the fit's Chrome trace misses a kernel of the port: {hits}")
+    return dict(launches={k: v + j["launches"][k] for k, v in r["launches"].items()})
+
+
+def phase_search(device, root: Path, tables: dict, card: str) -> dict:
+    """H: ``hparams_search=srcnn_optuna`` on ``experiment=esrgan_pre_training``
+    through the port's search path (``cli.train.run_hparams_search``), 3
+    trials of 1 epoch of at most 2 steps on phase 13's set, without
+    ``datamodule.cfg.resolutions`` in the space (the set holds 2.5m tiles
+    only); ``trials.csv`` and ``best.yaml`` printed, ``best.yaml`` read back."""
+    from climsr_tpu_torch.cli.train import run_hparams_search
+    from climsr_tpu_torch.config.compose import compose, default_config_dir
+    from climsr_tpu_torch.config.yaml_subset import load_yaml
+
+    out = root / "search"
+    overrides = ["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+                 "hparams_search=srcnn_optuna", "hparams_search.n_trials=3", "trainer.max_epochs=1",
+                 "trainer.limit_train_batches=2", "training.run_test_after_fit=false", "logger=csv",
+                 "print_config=false", f"training.output_dir={out}"]
+    cfg = compose(default_config_dir(), "config", overrides)
+    cut = cfg["hparams_search"]["search_space"].pop("datamodule.cfg.resolutions")
+    print(f"# H search space cut to phase 13's set: datamodule.cfg.resolutions {cut['choices']} dropped; "
+          f"{len(cfg['hparams_search']['search_space'])} dimensions left")
+    counters = kernel_counters()
+    zero_counts(counters)
+    best = run_hparams_search(cfg, overrides, device, tables=tables)
+    launches = counts(counters)
+    trials = (out / "hparams_search" / "trials.csv").read_text()
+    text = (out / "hparams_search" / "best.yaml").read_text()
+    back = load_yaml(text)
+    print("# H trials.csv:\n" + "\n".join(f"#   {line}" for line in trials.splitlines()))
+    print("# H best.yaml:\n" + "\n".join(f"#   {line}" for line in text.splitlines()))
+    print(f"# H best {best}; best.yaml read back: value {back['value']}, {len(back['params'])} params; launches "
+          f"{launches}")
+    complete = trials.count(",COMPLETE,")
+    if best is None or back["value"] != best or not complete or not all(launches[k] for k in ("A", "B1", "B2", "C")):
+        raise AssertionError(f"H: the search gave best {best}, {complete} complete trials, launches {launches}")
+    if launches["B1"] != launches["B2"] or launches["B1"] != 3 * cfg["generator"]["nb"] * launches["C"]:
+        raise AssertionError(f"H: expected 3 x nb B1 and B2 per C launch, counted {launches}")
+    return dict(launches=launches)
+
+
+def phase_batch_probe(device, root: Path, tables: dict, card: str) -> dict:
+    """P: ``trainer.auto_scale_batch_size=power`` and then ``binsearch`` on
+    phase 13's experiment through ``cli.train.run`` (the Trainer alone,
+    ``training.run_fit=false``): each trial's batch, peak GB and verdict, the
+    chosen batch; the next doubling of it did not fit (out of memory, over
+    the headroom, or past a size limit of a PyTorch op); then one real train step of the Trainer at the chosen batch
+    (its tile store and device augmentation, indices cycled over the set)
+    runs without running out of memory, through B1, B2 and C."""
+    result = dict(launches=dict.fromkeys(kernel_counters(), 0))
+    total = torch.cuda.get_device_properties(device).total_memory
+    for mode in ("power", "binsearch"):
+        r = fit_entry_point(device, root, f"probe_{mode}", [
+            "experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+            f"trainer.auto_scale_batch_size={mode}", "training.run_fit=false", "training.run_test_after_fit=false"],
+            tables)
+        tr = r["trainer"]
+        chosen = tr.dm.cfg.batch_size
+        for t in tr.batch_trials:
+            why = " (out of memory)" if t["oom"] else f" ({t['limit']})" if t["limit"] else ""
+            print(f"# P {mode} trial: batch {t['bs']}, step peak {t['peak_bytes'] / 1e9:.3f} GB, fits {t['fits']}{why}")
+        failed = [t["bs"] for t in tr.batch_trials if not t["fits"]]
+        print(f"# P {mode}: chosen batch {chosen} (from {TRAIN_N}); {len(tr.batch_trials)} trials in {r['wall']:.3f} s; "
+              f"launches {r['launches']}; limit {PROBE_HEADROOM:g} x {total / 1e9:.3f} GB ({card})")
+        if chosen < TRAIN_N or not failed or min(failed) > 2 * chosen:
+            raise AssertionError(f"P {mode}: chose {chosen}; the trials did not show that {2 * chosen} fails: "
+                                 f"{tr.batch_trials}")
+        counters = kernel_counters()
+        before = counts(counters)
+        idx = torch.arange(chosen) % len(tr.dm.train_dataset)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.state, metrics = tr.train_step(tr.state, idx)
+        loss = metrics["train/loss"].item()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launched = {k: v - before[k] for k, v in counts(counters).items()}
+        nb = r["cfg"]["generator"]["nb"]
+        print(f"# P {mode}: one train step at batch {chosen}: loss {loss:.6f}, {step_s:.3f} s, peak {peak:.3f} GB, "
+              f"launches {launched}")
+        if not np.isfinite(loss) or (launched["B1"], launched["B2"], launched["C"]) != (3 * nb, 3 * nb, 1):
+            raise AssertionError(f"P {mode}: the step at the chosen batch failed: loss {loss}, launches {launched}")
+        result[mode] = chosen
+        result["launches"] = {k: v + r["launches"][k] + launched[k] for k, v in result["launches"].items()}
+        del tr, r, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the GPU", file=sys.stderr)
@@ -1744,6 +2120,12 @@ def main() -> int:
         print(f"# {name} at gc={GC_REF}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e} ({card})")
 
+    # W. fault 1: the bf16 chain at nf other than 64, checked and timed; an nf=32 ESRGAN trains
+    t = time.perf_counter()
+    paths = {"W": phase_widths(device, card, {GC: kernel_a[(TRAIN_N, TRAIN_LR, TRAIN_LR), False]},
+                               {GC: train_kernels, GC_REF: train_kernels_ref})["launches"]}
+    seconds = {"W": time.perf_counter() - t}
+
     with tempfile.TemporaryDirectory(prefix="climsr_smoke_") as tmp:
         root = Path(tmp)
         # 13. the training entry point: composed config, data path, Trainer, checkpoints
@@ -1762,6 +2144,16 @@ def main() -> int:
         phase_gan_preset(device, root, eu_tables, trainer["best_ckpt"], card)
         # D. DRLN and RFB-ESRGAN pre-training through the entry point
         phase_family_pretrain(device, root, card)
+
+        # L, R, Q, H, P: the training entry point's services on phase 13's experiment and set
+        for label, phase in (("L", phase_lr_find), ("R", phase_pruning), ("Q", phase_profilers),
+                             ("H", phase_search), ("P", phase_batch_probe)):
+            t = time.perf_counter()
+            paths[label] = phase(device, root, trainer["tables"], card)["launches"]
+            seconds[label] = time.perf_counter() - t
+        print(f"# launches on each path of this slice, through the kernels (plain runs and checks not "
+              f"counted): {json.dumps(paths)}")
+        print(f"# seconds by phase of this slice: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     # 14. results
     # A, B1, B2 and C: their launches on this slice's main path, the training

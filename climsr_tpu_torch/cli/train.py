@@ -14,8 +14,10 @@ Usage, on the card::
     python -m climsr_tpu_torch.cli.train experiment=esrgan_pre_training datamodule.cfg.data_path=...
 
 A leading ``--device=cpu`` runs on the CPU; it is not a config key, so the
-composed config is the JAX package's. ``hparams_search`` and
-``training.lr_find_only`` raise (``ROADMAP.md``, queue 1, item 9).
+composed config is the JAX package's. ``training.lr_find_only=true`` runs the
+LR range test instead of the fit (``training/lr_finder.py``), and an
+``hparams_search=<preset>`` runs the sweep (``training/hparams_search.py``),
+one ``run`` per trial (:func:`run_hparams_search`), as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -41,9 +43,6 @@ from climsr_tpu_torch.config.schemas import (
 from climsr_tpu_torch.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
-
-_SERVICES = "ROADMAP.md, queue 1, item 9: remaining services"
-
 
 class _ReportCallback:
     """Passes each validation's optimized metric to ``run``'s ``report_cb`` as
@@ -84,8 +83,6 @@ def run(cfg: Dict[str, Any], report_cb=None, datamodule=None, device: DeviceLike
         print_config(cfg)
 
     training_cfg = from_dict(TrainingConfig, cfg.get("training")) or TrainingConfig()
-    if training_cfg.lr_find_only:
-        raise NotImplementedError(f"training.lr_find_only (the LR range test) is not ported yet: {_SERVICES}")
     trainer_cfg = from_dict(TrainerConfig, cfg.get("trainer")) or TrainerConfig()
     # the profiler config group maps onto the trainer flag, as the
     # reference's hydra profiler group -> pl.Trainer(profiler=...)
@@ -151,6 +148,13 @@ def run(cfg: Dict[str, Any], report_cb=None, datamodule=None, device: DeviceLike
 
     last_val: Dict[str, float] = {}
     try:
+        if training_cfg.lr_find_only:
+            # reference cli/train.py:98-109: the LR range test, report, exit
+            from climsr_tpu_torch.training.lr_finder import lr_range_test
+
+            suggestion, _ = lr_range_test(trainer)
+            logger.info("LR finder done; suggestion=%.3g (lr_find.csv in %s)", suggestion, trainer.workdir)
+            return suggestion
         if training_cfg.run_fit:
             last_val = trainer.fit()
         # skip the test phase when evicted: the SIGTERM grace window is for
@@ -165,6 +169,39 @@ def run(cfg: Dict[str, Any], report_cb=None, datamodule=None, device: DeviceLike
     return last_val.get("hp_metric")
 
 
+def run_hparams_search(cfg: Dict[str, Any], overrides: List[str], device: DeviceLike = None,
+                       tables=None) -> Optional[float]:
+    """The sweep of ``cfg["hparams_search"]`` (reference: hydra ``-m`` with the
+    Optuna sweeper; JAX ``climsr_tpu/cli/train.py:196-217``): each trial
+    composes ``overrides`` (less the ``hparams_search`` ones, plus the
+    trial's choices and ``training.optimized_metric``) and :func:`run` s it,
+    its validations reported to the median pruner. Trials and ``best.yaml``
+    land in ``<training.output_dir>/hparams_search``. ``tables`` (the
+    synthetic set's in-memory tables) builds each trial's datamodule from
+    them instead of the feather files. Returns the best trial's value."""
+    from climsr_tpu_torch.training.hparams_search import run_search
+
+    search_cfg = cfg["hparams_search"]
+    metric = search_cfg.get("optimized_metric", "val/rmse")
+    base = [o for o in overrides if not o.startswith("hparams_search")]
+    base.append(f"training.optimized_metric={metric}")
+
+    def objective(trial_overrides: List[str], report) -> Optional[float]:
+        trial_cfg = compose(default_config_dir(), "config", trial_overrides)
+        trial_cfg["print_config"] = False
+        datamodule = None
+        if tables is not None:
+            from climsr_tpu_torch.data.datamodule import SuperResolutionDataModule
+
+            data_cfg = from_dict(SuperResolutionDataConfig, trial_cfg["datamodule"]["cfg"])
+            datamodule = SuperResolutionDataModule(data_cfg, tables=tables)
+        return run(trial_cfg, report_cb=report, datamodule=datamodule, device=device)
+
+    best, _ = run_search(base, search_cfg, objective,
+                         output_dir=str((cfg.get("training") or {}).get("output_dir", ".")) + "/hparams_search")
+    return best.value if best else None
+
+
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> Optional[float]:
     """Compose ``conf/config.yaml`` with ``argv`` (default ``sys.argv[1:]``)
     and :func:`run` it. A leading ``--device=<name>`` sets ``device``."""
@@ -176,7 +213,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> Optiona
     cfg = compose(default_config_dir(), "config", overrides)
     search_cfg = cfg.get("hparams_search")
     if isinstance(search_cfg, dict) and search_cfg.get("search_space"):
-        raise NotImplementedError(f"hparams_search (the hyperparameter sweep) is not ported yet: {_SERVICES}")
+        return run_hparams_search(cfg, overrides, dev)
     return run(cfg, device=dev)
 
 

@@ -140,9 +140,8 @@ class TrainerConfig:
     """The JAX package's trainer knobs, with its names and defaults.
 
     The port's Trainer runs on one device: ``num_devices > 1``,
-    ``zero_stage``/``shard_optimizer_state``, ``spatial_shard_size > 1``,
-    ``auto_scale_batch_size`` and the "jax"/"advanced"/"pytorch" profilers
-    raise, naming their ``ROADMAP.md`` item (queue 1, items 8 and 9).
+    ``zero_stage``/``shard_optimizer_state`` and ``spatial_shard_size > 1``
+    raise, naming their ``ROADMAP.md`` item (queue 1, item 8).
     ``remat`` and ``mesh_axes`` are taken for parity and change nothing.
     """
 
@@ -184,8 +183,9 @@ class TrainerConfig:
     early_stopping_patience: Optional[int] = 100
     terminate_on_nan: bool = False
 
-    # profiler: None | "simple" (stage-time table); the JAX package's "jax",
-    # "advanced" and "pytorch" profilers raise in the port
+    # profiler: None | "simple" (stage-time table) | "jax" (the fit's
+    # torch.profiler Chrome trace under profiler_dir) | "advanced"/"pytorch"
+    # (stage table + a table of self device time by op over epoch 0)
     profiler: Optional[str] = None
     profiler_dir: str = "profiles"
 

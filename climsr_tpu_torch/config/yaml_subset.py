@@ -348,3 +348,50 @@ def _quoted(text: str, i: int, fail) -> Tuple[str, int]:
 def load_yaml(text: str, source: str = "<string>") -> Any:
     """Parse ``text`` (the subset above) into dicts, lists and scalars."""
     return _Reader(text, source).document()
+
+
+def _flow(value: Any) -> str:
+    """One value as a flow scalar, sequence or mapping of the subset above."""
+    import json
+    import math
+
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()  # as PyYAML writes a float: a dot before any exponent (1.0e-05),
+        return text.replace("e", ".0e", 1) if "e" in text and "." not in text else text  # YAML 1.1 reads
+    if isinstance(value, str):
+        return json.dumps(value)  # JSON's escapes are YAML double-quoted escapes
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_flow(v) for v in value) + "]"
+    if isinstance(value, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_flow(v)}" for k, v in value.items()) + "}"
+    raise TypeError(f"dump_yaml writes dicts, lists and scalars, got {type(value).__name__}")
+
+
+def dump_yaml(data: Any, indent: int = 0) -> str:
+    """``data`` (dicts, lists, str, int, float, bool, None) as text that
+    :func:`load_yaml` reads back to equal values: mappings in block style with
+    double-quoted keys, sequences and scalars in flow style, strings
+    double-quoted. The port's counterpart of ``yaml.safe_dump`` where PyYAML
+    may be missing (the hyperparameter search's ``best.yaml``)."""
+    import json
+
+    if not isinstance(data, dict):
+        return " " * indent + _flow(data) + "\n"
+    lines = []
+    for k, v in data.items():
+        key = " " * indent + json.dumps(str(k)) + ":"
+        if isinstance(v, dict) and v:
+            lines.append(key + "\n" + dump_yaml(v, indent + 2).rstrip("\n"))
+        else:
+            lines.append(f"{key} {_flow(v)}")
+    return "\n".join(lines) + "\n"

@@ -207,7 +207,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       const unsigned long long b = smem_desc(wsm + ks * 16 * kLastN, 128, 256);
 #pragma unroll
-      for (int i = 0; i < kMB; ++i) wgmma_m64n64k16(acc[i], a[ks % 3][i], b);
+      for (int i = 0; i < kMB; ++i) wgmma_m64k16<64>(acc[i], a[ks % 3][i], b);
       wgmma_commit();
     }
     wgmma_wait<0>();

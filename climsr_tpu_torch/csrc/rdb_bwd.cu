@@ -34,12 +34,14 @@
 //    gives dx. The tile's centre of B goes to device memory as `z`, the input
 //    of part 2. In bf16 this is the forward's `conv_chain` (rdb_common.cuh):
 //    weights through a two-slot shared-memory ring, mma.sync for the growth
-//    steps and wgmma for the 64-channel last conv, the tile and shared
-//    memory of kernel A at the same widths, one block per SM.
+//    steps and wgmma for the nf-channel last conv (passes of at most 64
+//    outputs), the tile and shared memory of kernel A at the same widths, one
+//    block per SM.
 // 2. dW (`rdb_wgrad_*_kernel`). bf16: one block per job and split of the
-//    pixel tiles. A job is a 16-channel group of z (dz_5 in four groups at
-//    nf = 64, then dz_4 .. dz_1, each the output gradient of one conv) and
-//    at most 128 of that conv's input channels: 8 jobs at gc = 16; 18 at
+//    pixel tiles. A job is a 16-channel group of z (dz_5 in nf / 16 groups,
+//    then dz_4 .. dz_1, each the output gradient of one conv) and at most 128
+//    of that conv's input channels, a conv's inputs cut in near-equal parts
+//    of whole 16-channel groups: at nf = 64, 8 jobs at gc = 16; 18 at
 //    gc = 32, where conv5's 192 inputs and conv4's 160 are cut in two halves
 //    each. The job and split tables come from the wrapper (`wgrad_plan`):
 //    33 splits at the training shape and gc = 16, so 264 blocks fill the 132
@@ -117,7 +119,7 @@ struct DxStore {
   }
 };
 
-template <int NQ>  // gc = 16 * NQ: one kernel per growth width, as kernel A
+template <int NQ, bool ANY_NF>  // gc = 16 * NQ: one kernel per growth width and nf = 64 or not, as kernel A
 __global__ void __launch_bounds__(kThreads, 1)
     rdb_bwd_dx_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ feat, bf16* __restrict__ dx,
                            bf16* __restrict__ z, const bf16* __restrict__ w, int H, int W, int nf, int gc, int th,
@@ -149,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // steps 0..3 give dz_4, dz_3, dz_2, dz_1; the last conv gives dx
   const SlopeStore growth{buf, feat, img, cp, pw, nf, gc, total, oy, ox, H, W};
   const DxStore last{g, dx, img, oy, ox, H, W, nf, gxs};
-  conv_chain<NQ>(buf, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
+  conv_chain<NQ, ANY_NF>(buf, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
     const int tv = total / 8;  // the tile's B to device memory, for part 2
     for (int i = threadIdx.x; i < th * tw * tv; i += kThreads) {
       const int v = i % tv, pix = i / tv, sy = pix / tw, sx = pix % tw;
@@ -550,10 +552,11 @@ extern "C" int climsr_rdb_bwd(const void* feat, const void* g, const void* w, vo
     if (!chain_fits(nf, gc, th, tw) || jobs == nullptr || bounds == nullptr || njobs < total / 16)
       return (int)cudaErrorInvalidValue;
     const size_t smem = chain_smem(nf, gc, th, tw);
-    using Kernel = decltype(&rdb_bwd_dx_bf16_kernel<1>);
-    const Kernel kernels[kMaxGrowthQ] = {&rdb_bwd_dx_bf16_kernel<1>, &rdb_bwd_dx_bf16_kernel<2>,
-                                             &rdb_bwd_dx_bf16_kernel<3>};
-    const Kernel dx_kernel = kernels[gc / 16 - 1];
+    using Kernel = decltype(&rdb_bwd_dx_bf16_kernel<1, false>);
+    const Kernel kernels[2][kMaxGrowthQ] = {
+        {&rdb_bwd_dx_bf16_kernel<1, false>, &rdb_bwd_dx_bf16_kernel<2, false>, &rdb_bwd_dx_bf16_kernel<3, false>},
+        {&rdb_bwd_dx_bf16_kernel<1, true>, &rdb_bwd_dx_bf16_kernel<2, true>, &rdb_bwd_dx_bf16_kernel<3, true>}};
+    const Kernel dx_kernel = kernels[nf != kLastN][gc / 16 - 1];
     if ((err = allow_smem(dx_kernel, smem)) != cudaSuccess) return (int)err;
     dx_kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const bf16*>(g), static_cast<const bf16*>(feat), static_cast<bf16*>(dx), static_cast<bf16*>(z),

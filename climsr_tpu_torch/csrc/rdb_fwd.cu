@@ -30,8 +30,9 @@
 // padding holds for every conv: x and every growth value at a position
 // outside the image are zero in the buffer. Sums are f32.
 //
-// - bfloat16 (`rdb_fwd_bf16_kernel<gc / 16>`, nf = 64, gc = 16, 32 or 48, one
-//   kernel per growth width): the five convs are `conv_chain` of rdb_common.cuh, implicit GEMMs on the tensor cores with
+// - bfloat16 (`rdb_fwd_bf16_kernel<gc / 16, nf != 64>`, nf a multiple of 16
+//   up to 128, gc = 16, 32 or 48, one kernel per growth width and for nf = 64
+//   or any other nf): the five convs are `conv_chain` of rdb_common.cuh, implicit GEMMs on the tensor cores with
 //   f32 sums (rows: the region's pixels; columns: output channels; K = 9 taps
 //   x cin). The buffer is pixel-major, channels padded by 8 so the eight rows
 //   of an ldmatrix fall on distinct banks; A fragments come from it with
@@ -43,9 +44,10 @@
 //   of weights from L2 once. x's copies land with the first chunk. The
 //   growth convs (gc outputs) run on mma.sync m16n8k16, each warp holding up
 //   to 5 M-tiles of 16 pixels with no branch in the loop, one A fragment
-//   feeding gc / 8 n-tiles; conv5 (64 outputs) runs on wgmma m64n64k16, two
-//   64-pixel M-blocks per warpgroup, A from registers and B straight from
-//   the ring. wgmma is not used for the growth convs: with 16 or 32 outputs
+//   feeding gc / 8 n-tiles; conv5 (nf outputs) runs on wgmma m64nNk16 in
+//   passes of at most 64 outputs (one pass of N = nf at nf <= 64, two at
+//   nf = 80 .. 128), two 64-pixel M-blocks per warpgroup, A from registers and
+//   B straight from the ring. wgmma is not used for the growth convs: with 16 or 32 outputs
 //   each A fragment feeds few columns, and their time goes to reading A from
 //   shared memory, which wgmma would not change.
 //   Tile and shared memory (the wrapper's `_tile`, the first that fits):
@@ -54,8 +56,10 @@
 //   bytes of buffer): 36,864 + 18 x 26 x 200 x 2 = 224,064, ~1.53x halo
 //   recompute, conv5 two 64-pixel M-blocks, one per warpgroup (12 x 12 fits
 //   too, but its three M-blocks and 25 growth M-tiles ran 12-28% slower in
-//   B1 and B2, `scripts/bench_rdb_tiles.py`); gc = 48, 8 x 8: 207,936. One block of 8 warps per SM of the
-//   232,448 bytes a block may use.
+//   B1 and B2, `scripts/bench_rdb_tiles.py`); gc = 48, 8 x 8: 207,936. At
+//   other nf the same rule picks 16 x 16, 8 x 16, 8 x 8 or, where the buffer
+//   is widest (nf = 112 and 128 at gc = 48), 4 x 8. One block of 8 warps per
+//   SM of the 232,448 bytes a block may use.
 // - float32 (`rdb_fwd_f32_kernel`): CUDA-core FMA over a channel-major buffer,
 //   each work item 2 pixels x 8 output channels, weights tap-major
 //   [tap][cin][cout] read through L1 (a warp-wide broadcast).
@@ -127,8 +131,8 @@ struct ResidualStore {
 };
 
 // one block per SM: the ring and the buffer take up to 224,064 of the 232,448 bytes a block may use;
-// one kernel per growth width gc = 16 * NQ
-template <int NQ>
+// one kernel per growth width gc = 16 * NQ, and per nf = 64 (ANY_NF false) or any other nf
+template <int NQ, bool ANY_NF>
 __global__ void __launch_bounds__(kThreads, 1)
     rdb_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x0, bf16* __restrict__ out,
                         bf16* __restrict__ saved, const bf16* __restrict__ w, const float* __restrict__ b, int H,
@@ -154,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const GrowthStore growth{feat, b, cp, pw, nf, gc, oy, ox, H, W};
   const ResidualStore last{feat, x0, out, b + 4 * gc, img, cp, pw, oy, ox, H, W, nf};
-  conv_chain<NQ>(feat, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
+  conv_chain<NQ, ANY_NF>(feat, ring, w, nf, gc, pw, th, tw, growth, last, [&] {
     if (saved == nullptr) return;
     // B1: the tile's [x, h_1 .. h_4] to device memory, 16 bytes at a time
     const int total = nf + 4 * gc, tv = total / 8;
@@ -274,10 +278,12 @@ int forward(const void* x, const void* x0, void* out, void* saved, const void* w
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (!chain_fits(nf, gc, th, tw)) return (int)cudaErrorInvalidValue;
-    using Kernel = decltype(&rdb_fwd_bf16_kernel<1>);
-    const Kernel kernels[kMaxGrowthQ] = {&rdb_fwd_bf16_kernel<1>, &rdb_fwd_bf16_kernel<2>, &rdb_fwd_bf16_kernel<3>};
-    return launch<Kernel, bf16, bf16>(kernels[gc / 16 - 1], chain_smem(nf, gc, th, tw), x, x0, out, saved, w, b, n, h,
-                                      w_, nf, gc, th, tw, s);
+    using Kernel = decltype(&rdb_fwd_bf16_kernel<1, false>);
+    const Kernel kernels[2][kMaxGrowthQ] = {
+        {&rdb_fwd_bf16_kernel<1, false>, &rdb_fwd_bf16_kernel<2, false>, &rdb_fwd_bf16_kernel<3, false>},
+        {&rdb_fwd_bf16_kernel<1, true>, &rdb_fwd_bf16_kernel<2, true>, &rdb_fwd_bf16_kernel<3, true>}};
+    return launch<Kernel, bf16, bf16>(kernels[nf != kLastN][gc / 16 - 1], chain_smem(nf, gc, th, tw), x, x0, out,
+                                      saved, w, b, n, h, w_, nf, gc, th, tw, s);
   }
   if (nf % kQ || gc % kQ || tw % kP) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(nf + 4 * gc) * (th + 2 * kHalo) * (tw + 2 * kHalo) * sizeof(float);

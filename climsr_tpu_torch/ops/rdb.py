@@ -36,16 +36,18 @@ gc=32, against 6 bytes of traffic per channel-pixel in bf16), and the kernels
 keep the whole concatenation in shared memory so that only x, x0 and the
 output (and, in training, feat and z) cross device memory. In bf16 A, B1 and
 B2's input-gradient pass share one conv chain (``csrc/rdb_common.cuh``
-``conv_chain``), which takes nf=64 and gc a multiple of 16 up to 48 (every
-ESRGAN config of the repo: gc=16 in ``conf/generator/esrgan.yaml``, gc=32 in
-``GeneratorConfig``'s defaults): the weights, packed once in
-:func:`chain_index`'s order, stream through a two-slot ring in shared memory;
-the gc-channel growth convs run on ``mma.sync`` (one A fragment feeds gc/8
-n-tiles) and the 64-channel last conv on ``wgmma``. The output tile is the
-first of ``_TILES`` whose buffer fits beside the ring (:func:`_tile`): 16 x 16
-at gc=16 (220,736 of the 232,448 bytes a block may use), 8 x 16 at gc=32
-(224,064; ~1.53x halo recompute against ~1.27x), 8 x 8 at gc=48; one block per
-SM. B2's weight gradient stages each pixel tile once for all nine taps, one
+``conv_chain``), which takes nf a multiple of 16 from 16 to 128 and gc a
+multiple of 16 up to 48 (the repo's ESRGAN configs: nf=64 with gc=16 in
+``conf/generator/esrgan.yaml`` and gc=32 in ``GeneratorConfig``'s defaults):
+the weights, packed once in :func:`chain_index`'s order, stream through a
+two-slot ring in shared memory; the gc-channel growth convs run on
+``mma.sync`` (one A fragment feeds gc/8 n-tiles) and the nf-channel last conv
+on ``wgmma`` in passes of at most 64 outputs (:func:`last_passes`). The output
+tile is the first of ``_TILES`` whose buffer fits beside the ring
+(:func:`_tile`): at nf=64, 16 x 16 at gc=16 (220,736 of the 232,448 bytes a
+block may use), 8 x 16 at gc=32 (224,064; ~1.53x halo recompute against
+~1.27x), 8 x 8 at gc=48; 4 x 8 where the buffer is widest (nf=112 and 128 at
+gc=48); one block per SM. B2's weight gradient stages each pixel tile once for all nine taps, one
 block per (16 outputs, at most 128 inputs) job and split of the pixels, given
 by :func:`wgrad_plan`, with per-split f32 partials summed in a fixed order (no
 atomics); its two 55,104-byte stages fit two blocks per SM. What still holds
@@ -80,18 +82,20 @@ _HALO = 5
 _PAD = 8  # bf16 buffer channels per pixel: nf + 4*gc + _PAD (spreads ldmatrix rows over the banks)
 _RING_BYTES = 2 * 9 * 16 * 64 * 2  # bf16 chain: two weight slots of 9 taps x 16 inputs x 64 outputs
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-# the bf16 chain (``chain_fits``): nf = 64 (wgmma's N), gc a multiple of 16 up to
-# 48, and each conv's 16-pixel M-tiles within 8 warps x 5 (growth) and 8 x 2 (last)
-_CHAIN_NF, _CHAIN_MAX_GC = 64, 48
+# the bf16 chain (``chain_fits``): nf a multiple of 16 up to 128 (the last conv in
+# passes of at most _LAST_PASS outputs, wgmma's N), gc a multiple of 16 up to 48,
+# and each conv's 16-pixel M-tiles within 8 warps x 5 (growth) and 8 x 2 (last)
+_CHAIN_MAX_NF, _CHAIN_MAX_GC, _LAST_PASS = 128, 48, 64
 _GROWTH_MTILES, _LAST_MTILES = 8 * 5, 8 * 2
 # output tiles (th, tw) tried in order; the first whose feature buffer fits is used. bf16:
 # 16 x 16 at gc=16, 8 x 16 at gc=32, 8 x 8 at gc=48. At gc=32, 12 x 12 fits too and recomputes
 # less halo (~1.47x against ~1.53x), but its 144 pixels make three 64-row M-blocks for conv5's two
 # warpgroups and 25 growth M-tiles for 8 warps, where 8 x 16 makes two and 24, and it overhangs a
 # 32 x 32 image: on an H100 B1 and B2 ran 12-28% slower at 12 x 12 than at 8 x 16, and A no faster
-# (``scripts/bench_rdb_tiles.py``, PERF.md)
+# (``scripts/bench_rdb_tiles.py``, PERF.md). 4 x 8 only where nothing larger fits: nf=112
+# and 128 at gc=48
 _TILES = {
-    torch.bfloat16: ((16, 16), (8, 16), (8, 8)),
+    torch.bfloat16: ((16, 16), (8, 16), (8, 8), (4, 8)),
     torch.float32: ((8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2)),
 }
 
@@ -169,7 +173,8 @@ def chain_index(cout: int, cin: int, last: bool = False) -> torch.Tensor:
     - a growth conv (mma.sync): [cout/16][32 lanes][4 words][2 halves], in
       :func:`fragment_index`'s B-fragment order;
     - the ``last`` conv (wgmma's K-major B tile, no swizzle):
-      [cout/8][2 k halves][8 outputs][8 k], 8 x 8 core matrices of 128 bytes.
+      [cout/8][2 k halves][8 outputs][8 k], 8 x 8 core matrices of 128 bytes
+      (one pass of :func:`last_passes`: the chain packs each pass's rows so).
     """
     if last:
         c, tap, nb, kh, nr, kr = (torch.arange(s).view([-1 if i == d else 1 for i in range(6)])
@@ -178,6 +183,14 @@ def chain_index(cout: int, cin: int, last: bool = False) -> torch.Tensor:
     n_idx, k_idx = fragment_index(cout, 9 * cin)
     flat = (n_idx * (9 * cin) + k_idx).view(cout // 16, 9, cin // 16, 32, 4, 2)
     return flat.permute(2, 1, 0, 3, 4, 5).reshape(-1)
+
+
+def last_passes(nf: int) -> List[Tuple[int, int]]:
+    """The bf16 chain's passes over the last conv's outputs, (first output,
+    outputs) each: at most 64 a pass (wgmma's N), so one pass of nf at nf <= 64
+    and (0, 64), (64, nf - 64) above. Each pass streams all its k-steps before
+    the next, so the packing holds the passes' rows one after the other."""
+    return [(n0, min(_LAST_PASS, nf - n0)) for n0 in range(0, nf, _LAST_PASS)]
 
 
 def _conv_shapes(nf: int, gc: int) -> List[Tuple[int, int, int, int]]:
@@ -198,7 +211,9 @@ def _chain_gather(nf: int, gc: int, transposed: bool, device: torch.device) -> t
     parts = []
     for k, (wt, _) in enumerate(convs):
         cout, cin = wt.shape[:2]
-        parts.append(wt.permute(0, 2, 3, 1).reshape(-1)[chain_index(cout, cin, last=k == 4)])
+        rows = last_passes(cout) if k == 4 else [(0, cout)]
+        for n0, n in rows:
+            parts.append(wt[n0:n0 + n].permute(0, 2, 3, 1).reshape(-1)[chain_index(n, cin, last=k == 4)])
     return torch.cat(parts).to(device)
 
 
@@ -239,7 +254,13 @@ def pack_rdb_weights(weights: Weights, dtype: torch.dtype = torch.float32) -> Pa
 def _tile(nf: int, gc: int, dtype: torch.dtype) -> Tuple[int, int]:
     """The first tile of ``_TILES[dtype]`` whose feature buffer fits a block's
     shared memory (bf16: beside the weight ring, ``chain_smem``; and within
-    the chain's M-tile limits), or ValueError."""
+    the chain's M-tile limits), or ValueError naming (nf, gc). The bf16 chain
+    (``chain_fits``) takes nf a multiple of 16 from 16 to 128 and gc a
+    multiple of 16 from 16 to 48."""
+    widths_ok = nf % 16 == 0 and 16 <= nf <= _CHAIN_MAX_NF and gc % 16 == 0 and 16 <= gc <= _CHAIN_MAX_GC
+    if dtype == torch.bfloat16 and not widths_ok:
+        raise ValueError(f"nf={nf}, gc={gc} does not fit the bf16 RDB chain: it takes nf a multiple of 16 from 16 "
+                         f"to {_CHAIN_MAX_NF} and gc a multiple of 16 from 16 to {_CHAIN_MAX_GC}")
     for th, tw in _TILES[dtype]:
         ph, pw = th + 2 * _HALO, tw + 2 * _HALO
         if dtype == torch.bfloat16:
@@ -279,10 +300,8 @@ def _check(x: torch.Tensor, x0: Optional[torch.Tensor], packed: PackedWeights) -
         raise ValueError("fused_rdb kernel needs x in torch.channels_last memory format")
     if x.shape[1] != packed.nf:
         raise ValueError(f"x has {x.shape[1]} channels, the weights expect nf={packed.nf}")
-    if x.dtype == torch.bfloat16 and (packed.nf != _CHAIN_NF or packed.gc % 16 or packed.gc > _CHAIN_MAX_GC):
-        raise ValueError(f"the bf16 RDB kernels take nf={_CHAIN_NF} and gc a multiple of 16 up to "
-                         f"{_CHAIN_MAX_GC} (every ESRGAN config of the repo), got nf={packed.nf}, "
-                         f"gc={packed.gc}; other widths on the tensor cores are open work (ROADMAP.md, fault 1)")
+    if x.dtype == torch.bfloat16:
+        _tile(packed.nf, packed.gc, x.dtype)  # raises for widths the chain does not take
     if packed.nf % 8 or packed.gc % 8:
         raise ValueError(f"fused_rdb kernel needs nf and gc divisible by 8, got nf={packed.nf}, gc={packed.gc}")
     if x.shape[0] > 65535:

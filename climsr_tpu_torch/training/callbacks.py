@@ -10,20 +10,22 @@ Trainer where the JAX Trainer calls it (``climsr_tpu/training/loop.py``):
 - ``on_train_epoch_end(trainer, epoch)`` (not for a preempted epoch),
 - ``on_validation_end(trainer, epoch, val_metrics)``.
 
-:class:`LearningRateMonitor` and :class:`DeviceStatsMonitor` (CUDA allocator
-statistics from ``torch.cuda.memory_stats``) are ported. ``log_images``
-(matplotlib grids), ``model_pruning`` and ``lottery_ticket`` raise,
-naming their ``ROADMAP.md`` item; no experiment preset of the repo selects a
-callback.
+:class:`LearningRateMonitor`, :class:`DeviceStatsMonitor` (CUDA allocator
+statistics from ``torch.cuda.memory_stats``) and :class:`ModelPruningCallback`
+(``model_pruning``, and ``lottery_ticket`` with the rewind) are ported.
+``log_images`` (matplotlib grids) raises, naming its ``ROADMAP.md`` item; no
+experiment preset of the repo selects a callback.
 """
 from __future__ import annotations
 
 import logging
 from typing import Dict, List, Optional
 
+import numpy as np
+
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "ROADMAP.md, queue 1, item 11: the remaining callbacks"
+_NOT_PORTED = "ROADMAP.md, queue 1, item 11: log_images"
 
 
 class LearningRateMonitor:
@@ -61,6 +63,89 @@ class DeviceStatsMonitor:
         trainer.metric_logger.log_metrics(stats, trainer.global_step)
 
 
+class ModelPruningCallback:
+    """L1-unstructured magnitude pruning of the generator's weights: the port
+    of the JAX ``ModelPruningCallback`` (``climsr_tpu/training/callbacks.py:194-300``),
+    PL's ``ModelPruning(pruning_fn='l1_unstructured')`` of
+    ``conf/callbacks/model_pruning.yaml``.
+
+    At every train-epoch end (before validation, so the epoch's val metrics
+    and the checkpoint they rank describe the pruned weights) the host zeroes
+    the smallest-|w| ``amount`` of each parameter with ndim >= 2 that is still
+    alive, on f32 copies with ``np.partition`` as JAX does, so the masks are
+    JAX's; masks are cumulative across epochs (``amount=0.5``: 50%, then 75%).
+    With ``use_lottery_ticket_hypothesis`` (``lottery_ticket.yaml``) the
+    surviving weights are rewound to their values at ``on_fit_start``. After
+    every train step the masks are re-applied on the card, one
+    ``torch._foreach_mul_`` under ``no_grad``, so the optimizer cannot move a
+    pruned weight off zero; its state is left alone, as in JAX. Both writes
+    are in place on the parameters (``copy_`` and ``mul_``), which bumps their
+    version counters: the ESRGAN blocks' packed kernel weights, cached by
+    (data pointer, version), are then packed anew, so kernels A, B1 and B2
+    never run on unpruned weights.
+    """
+
+    def __init__(self, amount: float = 0.5, use_lottery_ticket_hypothesis: bool = False):
+        self.amount = float(amount)
+        self.use_lottery_ticket_hypothesis = use_lottery_ticket_hypothesis
+        self._masks: Optional[Dict[str, np.ndarray]] = None
+        self._initial: Optional[Dict[str, np.ndarray]] = None
+        self._params: List = []
+        self._device_masks: List = []
+        self.sparsity = 0.0  # share of the prunable weights at zero after the last pruning
+
+    @staticmethod
+    def _prunable(model) -> Dict[str, "object"]:
+        return {name: p for name, p in model.named_parameters() if p.ndim >= 2}  # kernels, not biases
+
+    def on_fit_start(self, trainer) -> None:
+        if self.use_lottery_ticket_hypothesis:
+            self._initial = {name: p.detach().float().cpu().numpy().copy()
+                             for name, p in self._prunable(trainer.g_model).items()}
+
+    def on_train_epoch_end(self, trainer, epoch: int) -> None:
+        import torch
+
+        prunable = self._prunable(trainer.g_model)
+        if self._masks is None:
+            self._masks = {name: np.ones(tuple(p.shape), dtype=bool) for name, p in prunable.items()}
+        with torch.no_grad():
+            for name, p in prunable.items():  # JAX's prune(), leaf by leaf
+                mask = self._masks[name]
+                w = p.detach().float().cpu().numpy()
+                alive = np.abs(w)[mask]
+                if alive.size == 0:
+                    new = w * mask
+                else:
+                    k = int(alive.size * self.amount)
+                    if k > 0:
+                        thresh = np.partition(alive, k - 1)[k - 1]
+                        mask = mask & (np.abs(w) > thresh)
+                    src = self._initial[name] if self._initial is not None else w
+                    new = np.where(mask, src, 0.0)
+                self._masks[name] = mask
+                p.copy_(torch.from_numpy(np.ascontiguousarray(new, dtype=np.float32)))
+        self._params = list(prunable.values())
+        self._device_masks = [torch.from_numpy(self._masks[name]).to(p.device, p.dtype)
+                              for name, p in prunable.items()]
+        total = sum(m.size for m in self._masks.values())
+        self.sparsity = sum(int((~m).sum()) for m in self._masks.values()) / max(1, total)
+        logger.info("Pruned generator to %.1f%% sparsity%s", 100.0 * self.sparsity,
+                    " (lottery-ticket rewind)" if self.use_lottery_ticket_hypothesis else "")
+
+    def on_train_batch_end(self, trainer) -> None:
+        if not self._params:
+            return
+        import torch
+
+        with torch.no_grad():
+            torch._foreach_mul_(self._params, self._device_masks)
+
+
+def _lottery_ticket() -> ModelPruningCallback:
+    return ModelPruningCallback(use_lottery_ticket_hypothesis=True)
+
+
 def _not_ported(name: str):
     def build():
         raise NotImplementedError(f"callback '{name}' is not ported yet: {_NOT_PORTED}")
@@ -74,8 +159,8 @@ CALLBACK_REGISTRY = {
     # the reference's GPUStatsMonitor -> the device-stats monitor
     "gpu_stats_monitor": DeviceStatsMonitor,
     "log_images": _not_ported("log_images"),
-    "model_pruning": _not_ported("model_pruning"),
-    "lottery_ticket": _not_ported("lottery_ticket"),
+    "model_pruning": ModelPruningCallback,
+    "lottery_ticket": _lottery_ticket,
 }
 
 # config names that are first-class Trainer features, not callback objects

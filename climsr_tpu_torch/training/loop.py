@@ -25,12 +25,18 @@ port's builders: float32 parameters, bf16 compute under ``precision=bf16``.
 On the card each ESRGAN train step runs kernels B1, B2 (3 per RRDB each) and
 C (once), and each validation or test batch runs kernel A (3 per RRDB).
 
+``trainer.auto_scale_batch_size`` runs one real train step per trial batch
+size before the loaders are built (``training/batch_probe.py``); the
+"advanced" and "pytorch" profilers add a table of device time by kernel over
+epoch 0 (``utils/profiling.py``, ``profile_ops.txt``), and "jax" writes the
+fit's ``torch.profiler`` Chrome trace under ``trainer.profiler_dir``.
+
 Not ported, and raising with their ``ROADMAP.md`` item: more than one device,
-ZeRO, spatial sharding and multi-process runs (queue 1, item 8); the "jax",
-"advanced" and "pytorch" profilers and ``auto_scale_batch_size`` (item 9).
+ZeRO, spatial sharding and multi-process runs (queue 1, item 8).
 """
 from __future__ import annotations
 
+import gc
 import logging
 import time
 from pathlib import Path
@@ -62,7 +68,7 @@ from climsr_tpu_torch.data.pipeline import (
     gather,
 )
 from climsr_tpu_torch.device import DeviceLike, resolve_device
-from climsr_tpu_torch.models import create_discriminator, create_generator
+from climsr_tpu_torch.models import FUSION_GENERATORS, PRE_UPSCALED_GENERATORS, create_discriminator, create_generator
 from climsr_tpu_torch.training.checkpoint import CheckpointManager, load_checkpoint, restore_generator_params
 from climsr_tpu_torch.training.optimizers import build_optimizer
 from climsr_tpu_torch.training.schedules import resolve_momentum_schedule, resolve_schedule
@@ -76,7 +82,6 @@ T = consts.training
 logger = logging.getLogger(__name__)
 
 _MULTI_GPU = "ROADMAP.md, queue 1, item 8: multi-GPU"
-_SERVICES = "ROADMAP.md, queue 1, item 9: remaining services"
 
 
 def refuse_unported(trainer_cfg: TrainerConfig) -> None:
@@ -89,8 +94,6 @@ def refuse_unported(trainer_cfg: TrainerConfig) -> None:
         ((tc.spatial_shard_size or 0) > 1, f"trainer.spatial_shard_size={tc.spatial_shard_size}", _MULTI_GPU),
         (torch.distributed.is_available() and torch.distributed.is_initialized()
          and torch.distributed.get_world_size() > 1, "a multi-process run", _MULTI_GPU),
-        (bool(tc.auto_scale_batch_size), "trainer.auto_scale_batch_size", _SERVICES),
-        (tc.profiler in ("jax", "advanced", "pytorch"), f"profiler={tc.profiler}", _SERVICES),
     ]
     for bad, what, item in checks:
         if bad:
@@ -153,6 +156,13 @@ class Trainer:
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
 
+        # the trials of auto_scale_batch_size: (bs, peak_bytes, fits, oom) each
+        self.batch_trials: List[Dict[str, Any]] = []
+        if trainer_cfg.auto_scale_batch_size:
+            # before the loaders and num_training_steps, so schedules and
+            # epoch lengths see the scaled batch (PL Tuner order)
+            self._auto_scale_batch_size()
+
         # ---- data loaders -------------------------------------------------
         cfg = self.dm.cfg
         self.device_augment = trainer_cfg.device_augment
@@ -168,12 +178,8 @@ class Trainer:
                 random_90_rotation=t.random_90_rotation,
             )
             n_tiles = len(self.dm.train_dataset)
-            hr_sz = self.dm.train_dataset.hr_size
-            est_bytes = n_tiles * hr_sz * hr_sz * 4 * 3  # hr + elev + mask, f32
-            use_store = trainer_cfg.device_resident_data is True or (
-                trainer_cfg.device_resident_data == "auto" and est_bytes <= trainer_cfg.device_store_max_bytes
-            )
-            if use_store:
+            est_bytes = self._store_bytes()
+            if est_bytes:
                 logger.info("Device-resident tile store: %d tiles, ~%.2f GB", n_tiles, est_bytes / 1e9)
                 self.train_store = build_device_store(self.dm.train_dataset, num_workers=cfg.num_workers,
                                                       device=self.device)
@@ -334,6 +340,72 @@ class Trainer:
             initial_hp_metric=task_cfg.initial_hp_metric_val,
         )
 
+    def _store_bytes(self) -> int:
+        """The device tile store's size (hr, elevation and mask in f32) when
+        the Trainer will build one (device augmentation with
+        ``device_resident_data`` true, or "auto" within its byte limit), else 0."""
+        tc = self.trainer_cfg
+        if not tc.device_augment:
+            return 0
+        ds = self.dm.train_dataset
+        est = len(ds) * ds.hr_size * ds.hr_size * 4 * 3
+        use = tc.device_resident_data is True or (tc.device_resident_data == "auto"
+                                                   and est <= tc.device_store_max_bytes)
+        return est if use else 0
+
+    def _auto_scale_batch_size(self) -> None:
+        """trainer.auto_scale_batch_size: grow (or shrink) datamodule.cfg.batch_size
+        to the largest batch whose train step fits the card, as the JAX
+        Trainer's ``_auto_scale_batch_size`` (``climsr_tpu/training/loop.py:501-559``).
+
+        A throwaway generator of the same config, precision and init, with the
+        configured optimizer at a constant lr, runs the plain pixel-loss step
+        (no store, no augmentation) once per trial batch on zero batches; the
+        peak bytes of each step, beside the tile store the Trainer builds
+        afterwards, are held against 90% of the card's memory, and an
+        out-of-memory error means "does not fit" (``training/batch_probe.py``).
+        GAN tasks are declined, as in JAX (the D and VGG graph belongs to the
+        task, and no reference experiment tunes it). On the CPU the batch is kept.
+        """
+        from climsr_tpu_torch.training.batch_probe import fits, probe_max_batch_size
+
+        cfg = self.dm.cfg
+        mode = self.trainer_cfg.auto_scale_batch_size
+        if self.is_gan:
+            logger.warning("auto_scale_batch_size supports pixel-loss tasks only; keeping batch_size=%d for the "
+                           "GAN task", cfg.batch_size)
+            return
+        gen_kwargs = {k: getattr(self.generator_cfg, k) for k in GENERATOR_KWARGS}
+        model = create_generator(self.generator_type, dtype=self.compute_dtype, device=self.device, train=True,
+                                 generator=torch.Generator().manual_seed(self.training_cfg.seed), **gen_kwargs)
+        opt_cfg = self.optimizers_cfg.get(T.generator_optimizer_key) or OptimizerConfig(lr=self.training_cfg.lr)
+        state = TrainState.create(model, build_optimizer(opt_cfg, lambda s: opt_cfg.lr, device=self.device))
+        step = make_pretrain_step(model, self.generator_type, compute_dtype=self.compute_dtype, device=self.device)
+        ds = self.dm.train_dataset
+        hr = ds.hr_size
+        lr = hr if self.generator_type in PRE_UPSCALED_GENERATORS else ds.lr_size
+        in_ch = 1 + cfg.use_elevation + cfg.use_mask
+        template = {B.lr: torch.zeros((1, in_ch, lr, lr), dtype=self.compute_dtype, device=self.device),
+                    B.hr: torch.zeros((1, 1, hr, hr), dtype=self.compute_dtype, device=self.device)}
+        if self.generator_type in FUSION_GENERATORS:
+            template[B.elevation] = torch.zeros((1, 1, hr, hr), dtype=self.compute_dtype, device=self.device)
+            template[B.mask] = torch.zeros((1, 1, hr, hr), dtype=self.compute_dtype, device=self.device)
+        reserve = self._store_bytes()
+        try:
+            new_bs = probe_max_batch_size(
+                step, state, template, start=cfg.batch_size, mode="power" if mode is True else str(mode),
+                _fits=lambda bs: fits(step, state, template, bs, 0.9, reserve_bytes=reserve,
+                                      trials=self.batch_trials),
+            )
+        finally:
+            del model, state, step, template
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        if new_bs != cfg.batch_size:
+            logger.info("auto_scale_batch_size: %d -> %d", cfg.batch_size, new_bs)
+            cfg.batch_size = new_bs
+
     # -----------------------------------------------------------------------
     def _optimizers(self):
         if self.is_gan:
@@ -385,22 +457,54 @@ class Trainer:
 
     # -----------------------------------------------------------------------
     def fit(self) -> Dict[str, float]:
-        if self.trainer_cfg.profiler != "simple":
+        from climsr_tpu_torch.utils import profiling
+
+        name = self.trainer_cfg.profiler
+        trace_dir = self.workdir / self.trainer_cfg.profiler_dir
+        if name == "jax":
+            # the config keeps the JAX preset's name (conf/profiler/jax.yaml):
+            # there an xplane trace of the fit, here torch.profiler's Chrome
+            # trace of it (kernels on the card by name, host ops, their links)
+            prof = profiling.profiler(self.device)
+            prof.start()
+            try:
+                return self._fit_impl()
+            finally:
+                prof.stop()
+                trace_dir.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(trace_dir / "trace.json"))
+                logger.info("Profiler trace of the fit: %s", trace_dir / "trace.json")
+        if name not in ("simple", "advanced", "pytorch"):
             return self._fit_impl()
-        # per-stage wall-time table (PL SimpleProfiler), logged and written
-        # to profile_stages.txt beside the metrics
+        # "simple": per-stage wall-time table (PL SimpleProfiler), logged and
+        # written to profile_stages.txt beside the metrics. "advanced" and
+        # "pytorch" (PL AdvancedProfiler / PyTorchProfiler): the stage table
+        # plus a table of self device time by op over ONE epoch (the first),
+        # profile_ops.txt, and that epoch's Chrome trace under profiler_dir
+        advanced = name in ("advanced", "pytorch")
         self._stage_times: Dict[str, float] = {}
+        self._epoch_profiler = profiling.profiler(self.device) if advanced else None
+        self._epoch_profiled = False
         try:
             return self._fit_impl()
         finally:
             total = sum(self._stage_times.values()) or 1.0
             lines = [
-                f"  {name:<16} {secs:8.2f}s  {secs / total * 100:5.1f}%"
-                for name, secs in sorted(self._stage_times.items(), key=lambda kv: -kv[1])
+                f"  {stage:<16} {secs:8.2f}s  {secs / total * 100:5.1f}%"
+                for stage, secs in sorted(self._stage_times.items(), key=lambda kv: -kv[1])
             ]
             logger.info("Profiler report (wall time by stage):\n%s", "\n".join(lines))
             (self.workdir / "profile_stages.txt").write_text("\n".join(lines) + "\n")
             self._stage_times = None
+            prof, self._epoch_profiler = self._epoch_profiler, None
+            report = profiling.advanced_profile_report(prof) if self._epoch_profiled else None
+            if report:
+                logger.info("Profiler report (self device time by op, epoch 0):\n%s", report)
+                (self.workdir / "profile_ops.txt").write_text(report + "\n")
+                trace_dir.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(trace_dir / "trace.json"))
+            elif advanced:
+                logger.warning("No profiled epoch: only the stage table is available")
 
     def _staged(self, name: str, fn, *args):
         times = getattr(self, "_stage_times", None)
@@ -428,7 +532,16 @@ class Trainer:
                     logger.exception("Callback %s on_fit_start failed", type(cb).__name__)
         for epoch in range(max_epochs):
             self._epoch = epoch
-            self._staged("train_epoch", self.train_epoch, epoch)
+            prof = getattr(self, "_epoch_profiler", None)
+            if prof is not None and epoch == 0:
+                prof.start()
+                try:
+                    self._staged("train_epoch", self.train_epoch, epoch)
+                finally:
+                    prof.stop()
+                    self._epoch_profiled = True
+            else:
+                self._staged("train_epoch", self.train_epoch, epoch)
             # a preempted epoch is not an epoch end (PL never fires epoch-end
             # hooks for an interrupted epoch)
             if not self.preempted:

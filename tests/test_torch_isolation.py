@@ -39,7 +39,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for name in ("config.compose", "config.yaml_subset", "config.instantiator", "data.tables", "data.synthetic",
                  "data.climate_dataset", "data.datamodule", "data.pipeline", "ops.augment", "utils.core",
                  "utils.logging", "training.checkpoint", "training.callbacks", "training.loop", "cli.train",
-                 "cli.inference", "ops.pixel_shuffle", "models.rcan", "models.drln", "models.rfb_esrgan"):
+                 "cli.inference", "ops.pixel_shuffle", "models.rcan", "models.drln", "models.rfb_esrgan",
+                 "training.batch_probe", "training.lr_finder", "training.hparams_search", "utils.profiling",
+                 "scripts.bench_rdb_widths"):
         assert f"climsr_tpu_torch.{name}" in MODULES
 
 

@@ -143,17 +143,24 @@ def _assert_chain_order(weights, packed_w):
         if k == 4:
             # wgmma's B tile, K-major without swizzle (PTX ISA, wgmma shared-memory layouts): core
             # matrix (output block b, k half h) is 8 rows (outputs 8b + r) of 8 k (16 bytes), at
-            # (2b + h) * 128 bytes; the kernel's descriptor says 128 bytes along K, 256 along N
-            got = part.reshape(cin // 16, 9, cout // 8, 2, 8, 8)
-            want = np.empty_like(got)
-            for c in range(cin // 16):
-                for tap in range(9):
-                    for b in range(cout // 8):
-                        for h in range(2):
-                            for r in range(8):
-                                want[c, tap, b, h, r] = wb[8 * b + r, 16 * c + 8 * h: 16 * c + 8 * h + 8,
-                                                           tap // 3, tap % 3]
-            np.testing.assert_array_equal(got, want)
+            # (2b + h) * 128 bytes; the kernel's descriptor says 128 bytes along K, 256 along N.
+            # The last conv runs in passes of at most 64 outputs (wgmma's N), each pass's tiles
+            # packed whole before the next's
+            n0 = 0
+            for nn in [64] * (cout // 64) + [cout % 64] * (cout % 64 > 0):
+                size = 9 * cin * nn
+                got = part[n0 * 9 * cin: n0 * 9 * cin + size].reshape(cin // 16, 9, nn // 8, 2, 8, 8)
+                want = np.empty_like(got)
+                for c in range(cin // 16):
+                    for tap in range(9):
+                        for b in range(nn // 8):
+                            for h in range(2):
+                                for r in range(8):
+                                    want[c, tap, b, h, r] = wb[n0 + 8 * b + r, 16 * c + 8 * h: 16 * c + 8 * h + 8,
+                                                               tap // 3, tap % 3]
+                np.testing.assert_array_equal(got, want)
+                n0 += nn
+            assert n0 == cout
             continue
         got = part.reshape(cin // 16, 9, cout // 16, 32, 4, 2)
         want = np.empty_like(got)
@@ -241,19 +248,87 @@ def test_bf16_tile_at_gc32_is_8x16_within_the_budget():
         rdb._tile(64, 64, torch.bfloat16)
 
 
-@pytest.mark.parametrize("nf,gc", [(16, 16), (32, 32), (64, 64), (64, 8)], ids=["nf16", "nf32", "gc64", "gc8"])
+@pytest.mark.parametrize("nf,gc", [(144, 16), (24, 32), (64, 64), (64, 8)], ids=["nf144", "nf24", "gc64", "gc8"])
 def test_bf16_kernel_refuses_widths_the_chain_does_not_take(nf, gc):
-    """The bf16 chain's last conv is wgmma with N = nf = 64 and its growth
-    convs take gc in 16-output blocks up to 48: other widths raise, naming
-    the roadmap, before any launch (the check the wrapper runs on a CUDA
+    """The bf16 chain's last conv is wgmma in passes of at most 64 outputs
+    (two at most, so nf a multiple of 16 up to 128) and its growth convs take
+    gc in 16-output blocks up to 48: other widths raise, naming the
+    combination, before any launch (the check the wrapper runs on a CUDA
     tensor, called here on a CPU one)."""
     x = torch.zeros(1, nf, 4, 4, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
     w = torch.zeros(8, dtype=torch.bfloat16)
     packed = rdb.PackedWeights(w, torch.zeros(4 * gc + nf), nf, gc, torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match=f"nf={nf}, gc={gc} does not fit"):
         rdb._check(x, None, packed)
     ok = rdb.PackedWeights(w, torch.zeros(4 * 32 + 64), 64, 32, torch.bfloat16)
     rdb._check(torch.zeros(1, 64, 4, 4, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last), None, ok)
+
+
+WIDTHS = [pytest.param(nf, gc, id=f"nf{nf}-gc{gc}") for nf in (16, 32, 48, 80, 96, 112, 128) for gc in (16, 32, 48)]
+
+
+@pytest.mark.parametrize("nf,gc", WIDTHS)
+def test_bf16_chain_plan_at_other_widths(nf, gc):
+    """Fault 1 closed: the bf16 chain takes every nf a multiple of 16 up to
+    128 at gc = 16, 32, 48. The last conv's passes (wgmma's N <= 64), the
+    stream's chunks (the ring's two 64-column slots) and the tile: the first
+    of ``_TILES`` whose buffer (nf + 4*gc + 8 channels a pixel, a 5-pixel
+    halo) fits beside the 36,864-byte ring in 232,448 bytes, within the
+    chain's M-tile limits, and no larger tile fits."""
+    passes = rdb.last_passes(nf)
+    assert sum(n for _, n in passes) == nf and all(n in (16, 32, 48, 64) for _, n in passes)
+    assert [n0 for n0, _ in passes] == list(range(0, nf, 64)) and len(passes) == (1 if nf <= 64 else 2)
+    for _, n in passes:  # a chunk (one ring slot) holds 64 // n whole 16-input groups of a pass
+        assert 64 // n >= 1 and (64 // n) * 9 * 16 * n * 2 <= rdb._RING_BYTES // 2
+    th, tw = rdb._tile(nf, gc, torch.bfloat16)
+    cp = nf + 4 * gc + 8
+
+    def smem(t):
+        return (t[0] + 10) * (t[1] + 10) * cp * 2 + rdb._RING_BYTES
+
+    assert smem((th, tw)) <= rdb._SMEM_LIMIT
+    assert (th + 8) * (tw + 8) <= 16 * 8 * 5 and th * tw <= 16 * 8 * 2
+    tiles = rdb._TILES[torch.bfloat16]
+    assert all(smem(t) > rdb._SMEM_LIMIT for t in tiles[:tiles.index((th, tw))])
+    if (nf, gc) in ((112, 48), (128, 48)):
+        assert (th, tw) == (4, 8)
+
+
+@pytest.mark.parametrize("nf,gc", [(32, 16), (48, 32), (96, 16), (128, 32)], ids=["nf32", "nf48", "nf96", "nf128"])
+def test_bf16_packing_at_other_widths_is_the_chain_order(rng, nf, gc):
+    """The forward chain and kernel B2's transposed chain at widths other
+    than 64: growth convs in the mma.sync B-fragment order, the last conv as
+    wgmma B tiles of each pass (two passes at nf=96 and 128: outputs 0-63,
+    then the rest), against the layout written out element by element."""
+    _, _, ws = _case(rng, 1, 4, 4, nf, gc)
+    weights = _torch_args(np.zeros((1, 1, 1, nf), np.float32), np.zeros((1, 1, 1, nf), np.float32), ws)[2]
+    packed = rdb.pack_rdb_weights(weights, torch.bfloat16)
+    assert packed.w.numel() == 9 * (sum((nf + k * gc) * gc for k in range(4)) + (nf + 4 * gc) * nf)
+    _assert_chain_order(weights, packed.w)
+    _assert_chain_order(rdb.transposed_chain(weights), rdb._pack_chain(weights, transposed=True))
+
+
+@pytest.mark.parametrize("nf,gc", [(16, 16), (96, 32), (128, 48)], ids=["nf16", "nf96", "nf128-gc48"])
+def test_b2_wgrad_plan_at_other_widths(nf, gc):
+    """Kernel B2's dW jobs at other widths: one row per 16 channels of z and
+    part of its conv's inputs, every part whole 16-channel groups of at most
+    128, the parts of each group tiling the conv's inputs exactly once, and
+    the weight offsets those of the OIHW convs back to back."""
+    jobs, bounds = rdb.wgrad_plan(2, 7, 33, nf, gc, 3)
+    total = nf + 4 * gc
+    covered = {}
+    sizes = [9 * (gc if k < 4 else nf) * (nf + k * gc) for k in range(5)]
+    for zc, j, co0, cin, woff, ci0, cic in jobs.tolist():
+        assert cin == nf + j * gc and 16 <= cic <= 128 and cic % 16 == 0 and ci0 % 16 == 0
+        assert woff == sum(sizes[:j])
+        assert (zc < nf) == (j == 4) and co0 == (zc if j == 4 else (zc - nf) % gc)
+        covered.setdefault(zc, []).append((ci0, cic))
+    assert sorted(covered) == list(range(0, total, 16))
+    for zc, parts in covered.items():
+        parts.sort()
+        assert parts[0][0] == 0 and all(a + n == b for (a, n), (b, _) in zip(parts, parts[1:]))
+        assert sum(n for _, n in parts) == jobs[jobs[:, 0] == zc][0, 3].item()
+    assert bounds.tolist() == [0, 2, 4, 6]  # 2 images x 1 x 3 tiles of 8 x 16, in three splits
 
 
 def test_pack_rejects_inconsistent_shapes(rng):
@@ -305,3 +380,28 @@ def test_cuda_kernel_matches_plain_version(rng, cuda_device, dtype, tol, gc):
     ref = rdb.rdb_reference(tx, weights).float().permute(0, 2, 3, 1)
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
     assert rdb.fused_rdb_nhwc.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,gc", [(32, 16), (96, 32), (128, 48)], ids=["nf32", "nf96", "nf128-gc48"])
+def test_cuda_bf16_kernels_at_other_widths(rng, cuda_device, nf, gc):
+    """Fault 1 on the card: kernels A and B1/B2 in bf16 at nf other than 64
+    on a ragged image, against their plain versions (tolerances as
+    ``chip_smoke.py`` phases 3 and 6)."""
+    x, x0, ws = _case(rng, 2, 29, 45, nf, gc)
+    tx, tx0, weights = _torch_args(x, x0, ws)
+    tx, tx0 = (t.to(cuda_device, torch.bfloat16).contiguous(memory_format=torch.channels_last) for t in (tx, tx0))
+    weights = [(a.to(cuda_device, torch.bfloat16), b.to(cuda_device, torch.bfloat16)) for a, b in weights]
+    for res in (None, tx0):
+        got = rdb.fused_rdb(tx, weights, res).float()
+        ref = rdb.rdb_reference(tx, weights, res).float()
+        assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    out, feat = rdb.fused_rdb_fwd_save(tx, weights)
+    ref_out, ref_feat = rdb.rdb_fwd_save_reference(tx, weights)
+    assert (feat.float() - ref_feat.float()).abs().max().item() <= 3e-2 * ref_feat.float().abs().max().item()
+    g = (0.01 * torch.randn(tx.shape, generator=torch.Generator().manual_seed(0))).to(
+        cuda_device, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dx, dws, dbs = rdb.fused_rdb_bwd(feat, g, weights, 0.2, 1.0)
+    ref_dx, ref_dws, ref_dbs = rdb.rdb_bwd_reference(feat, g, weights, 0.2, 1.0)
+    for a, b in zip([dx, *dws, *dbs], [ref_dx, *ref_dws, *ref_dbs]):
+        assert (a.float() - b.float()).abs().max().item() <= 3e-2 * b.float().abs().max().item()

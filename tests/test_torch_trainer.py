@@ -306,23 +306,42 @@ def test_gan_fine_tune_through_the_trainer(tiny_world, tmp_path):
 
 
 def test_unported_options_raise_naming_their_roadmap_item(tiny_world, tmp_path):
+    """The multi-GPU options (item 8) and ``log_images`` (item 11) still raise,
+    naming their item; the options item 9 and item 11's pruning ported
+    (auto_scale_batch_size, the jax/advanced/pytorch profilers, the pruning
+    callbacks, the search, the LR range test) compose and build."""
     from climsr_tpu_torch.config.schemas import TrainerConfig
-    from climsr_tpu_torch.training.callbacks import build_callbacks
+    from climsr_tpu_torch.training import lr_finder
+    from climsr_tpu_torch.training.callbacks import ModelPruningCallback, build_callbacks
     from climsr_tpu_torch.training.loop import refuse_unported
 
     for kw, item in ((dict(num_devices=2), "item 8"), (dict(zero_stage=2), "item 8"),
                      (dict(spatial_shard_size=2), "item 8"), (dict(auto_scale_batch_size=True), "item 9"),
                      (dict(profiler="jax"), "item 9"), (dict(profiler="advanced"), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
+        if item == "item 8":
+            with pytest.raises(NotImplementedError, match=item):
+                refuse_unported(TrainerConfig(**kw))
+        else:
             refuse_unported(TrainerConfig(**kw))
     refuse_unported(TrainerConfig(num_devices=1, profiler="simple"))
     for name in ("log_images", "model_pruning", "lottery_ticket"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build_callbacks([name])
+        if name == "log_images":
+            with pytest.raises(NotImplementedError, match="item 11"):
+                build_callbacks([name])
+        else:
+            (cb,) = build_callbacks([name])
+            assert isinstance(cb, ModelPruningCallback) and cb.use_lottery_ticket_hypothesis == (name != "model_pruning")
     assert len(build_callbacks(["learning_rate_monitor", "device_stats_monitor", "early_stopping"])) == 2
-    for extra in (["hparams_search=srcnn_optuna"], ["training.lr_find_only=true"], ["profiler=pytorch"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            _cli(tiny_world, tmp_path, *extra)
+    lr_finder.lr_range_test.__defaults__, kept = (1e-7, 1.0, 6, 0.98), lr_finder.lr_range_test.__defaults__
+    try:
+        for i, extra in enumerate((["hparams_search=srcnn_optuna", "hparams_search.n_trials=1"],
+                                   ["training.lr_find_only=true"], ["profiler=pytorch"])):
+            assert np.isfinite(_cli(tiny_world, tmp_path / str(i), *extra))
+    finally:
+        lr_finder.lr_range_test.__defaults__ = kept
+    assert glob.glob(f"{tmp_path}/0/hparams_search/trials.csv") and glob.glob(f"{tmp_path}/0/hparams_search/best.yaml")
+    assert glob.glob(f"{tmp_path}/1/outputs/runs/esrgan/*/lr_find.csv")
+    assert glob.glob(f"{tmp_path}/2/outputs/runs/esrgan/*/profile_ops.txt")
 
 
 if __name__ == "__main__":  # write RECORD from the JAX Trainer, on the virtual CPU devices of the tests
