@@ -39,6 +39,11 @@ points of the three kernels that no model path runs:
   library convs, as in the JAX package). The ESRGAN GAN fine-tune preset
   pairs the flagship ESRGAN with the RFB discriminator: B1, B2 and C in each
   step, A in each generator forward of validation and test;
+- the offline pipelines as a user chains them: data preparation (host
+  numpy and a process pool) writes the tile index, statistics and tiles;
+  training reads them from disk (B1, B2, C a step, A in validation and the
+  ``log_images`` callback); inference (A) and the result inspection read
+  what that wrote;
 - kernel D (``fused_rdb_nhwc``, the NHWC entry to kernel A), kernel E
   (``fused_hr_tail``, ``csrc/hr_tail.cu``) and kernel F (``dc0``, two
   variants, which launches kernel C, ``csrc/conv9_dx_c0.cu``, through the
@@ -182,7 +187,34 @@ H. ``hparams_search=srcnn_optuna`` through ``cli.train.run_hparams_search``:
 P. ``trainer.auto_scale_batch_size=power`` and then ``binsearch`` (the
    Trainer alone): each trial's batch, peak and verdict, the chosen batch,
    the next doubling shown not to fit, one real train step at the chosen
-   batch; the launches of every path of W, L, R, Q, H and P printed,
+   batch,
+X. the offline pipelines, each through its entry point's ``main(argv)`` with
+   no table handed over: raw inputs fabricated from seeds at the real grids
+   (three CRU-TS NetCDF of 24 months at 360 x 720; WorldClim 2.5m tmin and
+   tmax for months 1-2 of 1999, 2002 and 2010 and the elevation at 4320 x
+   8640, one 10m tmin at 1080 x 2160; the ocean from one land mask); then
+   ``cli.data_preparation`` (download off, all seven steps, a ``spawn`` pool
+   of min(8, CPUs), in a child interpreter) with each step's seconds, the
+   resized rasters (1440 x 2880, NaN exactly on the ocean), the tiles of one
+   raster on ``_tile_windows``, the statistics against a float64
+   recomputation (1e-12 relative) and every feather read back; then
+   ``cli.train`` on the prepared directory (``esrgan_pre_training``, batch
+   192, bf16, 2 epochs, ``callbacks=[log_images]``): B1, B2 33 and C once a
+   step, A in the validations and the callback, every tile read by the
+   native reader, samples/s, and samples/s with the device's busy share over
+   4 profiled steps; then 1 epoch with ``trainer.device_resident_data=false``
+   (the host loaders) beside it, and 4 profiled steps of it with the tiles
+   read from their files (its tile cache emptied) and from the host cache; then ``cli.inference`` from the best checkpoint with
+   the prepared min-max and z-score tables, the whole globe from the CRU-TS
+   tmp NetCDF (a NetCDF of 24 x 1440 x 2880, NaN exactly on the ocean) and
+   the prepared europe-extent CRU-TS GeoTIFFs (24 x 452 x 452), months/s
+   and A's launches, the europe NetCDF against a rerun through the plain
+   RDB; then ``cli.inspect_results`` against the fabricated CRU-TS tmp file
+   (MAE, MSE, RMSE; the three CSVs' rows; plots where matplotlib is);
+   seconds by step and the disk used. The shape of every A, B1 and C launch
+   on the path is recorded, and after it A is checked against its plain
+   version at each of them, B1, B2 and C at those phase 6 did not check.
+   The launches of every path of W, L, R, Q, H, P and X printed,
 14. one JSON line with every kernel (the launches of A, B1, B2 and C are
    phase 13's, and A's times, bound and error are per launch over phase 13's
    eval shapes, from phase 3), the card line, then the device line as the
@@ -196,6 +228,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -269,6 +302,11 @@ TRAINER_TILES, TRAINER_EPOCHS = (128, 64, 64), 2
 # kernel A's shapes there: the validation set (3 x 64 tiles) in one batch of
 # 192, each test set in one of 64
 EVAL_SHAPES = ((TRAIN_N, TRAIN_LR, TRAIN_LR), (TRAINER_TILES[2], TRAIN_LR, TRAIN_LR))
+# the (n, h, w) at which phases 3 and 6 check kernels A, B1 and B2, and C at
+# the flagship widths; phase X checks its own launches' shapes beyond these
+A_CHECKED = ((16, 128, 128), (2, 45, 91), *EVAL_SHAPES)
+B_CHECKED = ((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45))
+C_CHECKED = ((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91))
 
 # phases A-D: the other generator families at their published widths
 # (conf/generator/*.yaml; 3 input channels, 1 output, x4)
@@ -599,7 +637,7 @@ def assert_bitwise_repeatable(tag: str, run) -> None:
         raise AssertionError(f"{tag} is not deterministic: two calls differ")
 
 
-def phase_train_kernels(device, gc=GC, shapes=((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45))) -> dict:
+def phase_train_kernels(device, gc=GC, shapes=B_CHECKED) -> dict:
     """Kernels B1 and B2 at growth width ``gc`` against rdb_fwd_save_reference /
     rdb_bwd_reference; times, bounds and B2's repeatability at the training shape."""
     from climsr_tpu_torch.ops.rdb import (
@@ -691,7 +729,7 @@ def b2_passes(run, calls: int = 5) -> dict:
     return parts
 
 
-def phase_head_kernel(device, shapes=((TRAIN_N, 4 * TRAIN_LR, 4 * TRAIN_LR), (2, 45, 91))) -> dict:
+def phase_head_kernel(device, shapes=C_CHECKED) -> dict:
     """Kernel C against conv9_dx_c0_reference at each of ``shapes``; at the
     training shape also its times and the library's transposed conv."""
     import torch.nn.functional as F
@@ -2031,6 +2069,493 @@ def phase_batch_probe(device, root: Path, tables: dict, card: str) -> dict:
     return result
 
 
+# ---- phase X: the offline pipelines, raw files to inspection ----------------
+
+# the raw world: CRU-TS months (1999-2000) at 360 x 720, WorldClim 2.5m months
+# 1-2 of a train, a val and a test year at 4320 x 8640 (tmin, tmax) and the
+# elevation, one 10m tmin raster at 1080 x 2160 (the 4/3 resize)
+X_CRU_GRID, X_CRU_MONTHS = (360, 720), 24
+X_WC_YEARS, X_WC_MONTHS = (1999, 2002, 2010), (1, 2)
+X_TRAIN_EPOCHS = 2
+# the profiled window after each fit: the device's busy share with the store on and off
+X_PROFILED_STEPS = 4
+# the statistics against a float64 recomputation, relative
+X_STATS_RTOL = 1e-12
+
+
+def x_land() -> np.ndarray:
+    """A north-up land mask on the CRU-TS grid: a smooth field thresholded at
+    29% land, the south polar rows ocean, and land over Poland (the result
+    inspection's probe peaks). Every raster of the phase repeats it."""
+    h, w = X_CRU_GRID
+    rng = np.random.default_rng(10)
+    blob = 10
+    field = np.kron(rng.normal(size=(h // blob, w // blob)), np.ones((blob, blob)))
+    for ax in (0, 1):
+        field = sum(np.roll(field, d, axis=ax) for d in range(-blob // 2, blob // 2 + 1)) / (blob + 1)
+    land = field >= np.quantile(field, 0.71)
+    land[-h // 9:] = False  # the south polar rows: ocean
+    land[int((90 - 55) / 0.5):int((90 - 49) / 0.5), int((14 + 180) / 0.5):int((24 + 180) / 0.5)] = True
+    return land
+
+
+def x_repeat(a: np.ndarray, k: int) -> np.ndarray:
+    return np.repeat(np.repeat(a, k, axis=0), k, axis=1)
+
+
+def make_raw_world(root: Path) -> dict:
+    """Raw CRU-TS NetCDF and WorldClim GeoTIFFs at the real grids, from seeds,
+    the ocean NaN (CRU-TS) or ``ocean_mask_value`` (WorldClim); the HR
+    elevation and land mask that inference reads."""
+    from climsr_tpu_torch import consts
+    from climsr_tpu_torch.io.geotiff import GeoProfile, write_geotiff
+    from climsr_tpu_torch.io.netcdf import ClimateSeries, write_climate_series
+
+    WC = consts.world_clim
+    land = x_land()
+    h, w = X_CRU_GRID
+    rng = np.random.default_rng(11)
+    cruts_dir, wc_dir = root / "cruts", root / "world-clim"
+    cruts_dir.mkdir(parents=True)
+    time_axis = np.array([f"{1999 + m // 12}-{m % 12 + 1:02d}-16" for m in range(X_CRU_MONTHS)], "datetime64[D]")
+    base = rng.normal(10, 5, size=(X_CRU_MONTHS, h, w)).astype(np.float32)
+    for var, shift in (("tmn", -4.0), ("tmp", 0.0), ("tmx", 4.0)):
+        data = np.where(land, base + shift, np.nan).astype(np.float32)[:, ::-1]  # NetCDF lat ascends
+        write_climate_series(cruts_dir / consts.cruts.file_pattern.format(var), ClimateSeries(
+            var, np.ascontiguousarray(data), time_axis, -89.75 + 0.5 * np.arange(h), -179.75 + 0.5 * np.arange(w)))
+
+    def raster(res: str, var: str, name: str, scale: int, coarse: np.ndarray) -> None:
+        d = wc_dir / "wc2.1" / res / var
+        d.mkdir(parents=True, exist_ok=True)
+        arr = np.where(x_repeat(land, scale), x_repeat(coarse.astype(np.float32), scale),
+                       np.float32(WC.ocean_mask_value))
+        write_geotiff(d / name, arr.astype(np.float32), GeoProfile.global_grid(h * scale, w * scale, nodata=None))
+
+    for year in X_WC_YEARS:
+        for month in X_WC_MONTHS:
+            coarse = rng.normal(8, 6, size=(h, w))
+            raster("2.5m", WC.tmin, f"wc2.1_2.5m_tmin_{year}-{month:02d}.tif", 12, coarse - 5)
+            raster("2.5m", WC.tmax, f"wc2.1_2.5m_tmax_{year}-{month:02d}.tif", 12, coarse + 5)
+    elev = rng.uniform(0, 3000, size=(h, w))
+    raster("2.5m", WC.elev, "wc2.1_2.5m_elev.tif", 12, elev)
+    raster("10m", WC.tmin, "wc2.1_10m_tmin_1999-01.tif", 3, rng.normal(3, 6, size=(h, w)))
+    hr = x_repeat(land, 4)
+    write_geotiff(root / "land_mask.tif", np.where(hr, 1.0, np.nan).astype(np.float32),
+                  GeoProfile.global_grid(4 * h, 4 * w))
+    write_geotiff(root / "elevation.tif", x_repeat(elev.astype(np.float32), 4),
+                  GeoProfile.global_grid(4 * h, 4 * w, nodata=None))
+    return dict(cruts=cruts_dir, wc_extracted=wc_dir, rasters=len(list(wc_dir.rglob("*.tif"))),
+                ocean_hr=~hr, elevation=root / "elevation.tif", land_mask=root / "land_mask.tif")
+
+
+def x_prepare(raw: dict, out: Path, n_workers: int) -> dict:
+    """``cli.data_preparation.main`` in a child interpreter (``-c``): the
+    preprocessing's ``spawn`` workers then import no ``__main__`` of ours,
+    and with it no torch. Returns each step's seconds."""
+    argv = ["run_download=false", f"preprocessing.data_dir_cruts={raw['cruts']}",
+            f"preprocessing.data_dir_world_clim={raw['wc_extracted']}", f"preprocessing.output_path={out}",
+            f"preprocessing.n_workers={n_workers}"]
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})\n"
+        "from climsr_tpu_torch.cli.data_preparation import main\n"
+        f"print(json.dumps(main({argv!r})))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"X data preparation failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def x_stats_reference(raw: dict, pre: Path) -> tuple:
+    """The z-score and min-max tables recomputed in float64 numpy from the
+    same files (the JAX package's rules: pooled per-file statistics, 'temp'
+    over the six temperature rows, global min/max pooled with 0.0)."""
+    from climsr_tpu_torch import consts
+    from climsr_tpu_torch.io.geotiff import read_geotiff
+    from climsr_tpu_torch.io.netcdf import read_climate_series
+
+    WC = consts.world_clim
+
+    def clean(a):
+        a = a.astype(np.float64)
+        for m in WC.missing_indicators:
+            a[a == m] = np.nan
+        return a
+
+    def stats(a):
+        a = clean(a)
+        mean, std, lo, hi = np.nanmean(a), np.nanstd(a), np.nanmin(a), np.nanmax(a)
+        return [mean, std, lo, hi, (lo - mean) / (std + 1e-8), (hi - mean) / (std + 1e-8)]
+
+    def pooled(rows):
+        r = np.asarray(rows)
+        return [r[:, 0].mean(), r[:, 1].mean(), r[:, 2].min(), r[:, 3].max(), r[:, 4].min(), r[:, 5].max()]
+
+    zscore, minmax = {}, []
+    for var in consts.cruts.temperature_vars:
+        zscore[var] = stats(read_climate_series(raw["cruts"] / consts.cruts.file_pattern.format(var), var).data)
+        for fp in sorted((pre / "cruts" / consts.cruts.full_res_dir / var).glob("*.tif")):
+            a = clean(read_geotiff(fp)[0])
+            minmax.append((str(fp), var, np.nanmin(a), np.nanmax(a)))
+    for var in WC.temperature_vars + [WC.elev]:
+        files = sorted((pre / "world-clim" / WC.resized_dir).rglob(f"*{var}*.tif"))
+        per_file = [stats(read_geotiff(fp)[0]) for fp in files]
+        zscore[var] = pooled(per_file)
+        minmax += [(str(fp), var, s[2], s[3]) for fp, s in zip(files, per_file)]
+    zscore[WC.temp] = pooled([v for k, v in zscore.items() if k != WC.elev])
+    glob_min = {v: min(r[2] for r in minmax if r[1] == v) for v in {r[1] for r in minmax}}
+    glob_max = {v: max(r[3] for r in minmax if r[1] == v) for v in {r[1] for r in minmax}}
+    for group in (consts.cruts.temperature_vars, WC.temperature_vars):
+        lo, hi = min([0.0] + [glob_min[v] for v in group]), max([0.0] + [glob_max[v] for v in group])
+        for v in group:
+            glob_min[v], glob_max[v] = lo, hi
+    return zscore, {fp: (lo, hi, glob_min[v], glob_max[v]) for fp, v, lo, hi in minmax}
+
+
+def x_check_prepared(raw: dict, out: Path) -> dict:
+    """Resized rasters on the target grid with the ocean NaN, tiles on
+    ``_tile_windows`` (kept where at most 85% is NaN), the statistics against
+    the recomputation, every feather read back. Returns the counts."""
+    from climsr_tpu_torch import consts
+    from climsr_tpu_torch.data.tables import read_feather
+    from climsr_tpu_torch.io.geotiff import read_geotiff
+    from climsr_tpu_torch.preprocessing.preprocessing import _tile_windows
+
+    WC, D, S = consts.world_clim, consts.datasets_and_preprocessing, consts.stats
+    pre = out / D.preprocessing_output_path
+    resized = sorted((pre / "world-clim" / WC.resized_dir).rglob("*.tif"))
+    tiles = list((pre / "world-clim" / WC.tiles_dir).rglob("*.tif"))
+    tw, th = WC.target_hr_resolution
+    for fp in resized:
+        arr = read_geotiff(fp)[0]
+        if arr.shape != (th, tw) or not np.array_equal(np.isnan(arr), raw["ocean_hr"]):
+            raise AssertionError(f"X {fp.name}: shape {arr.shape} or its NaN cells are not the ocean")
+    sample = next(fp for fp in resized if fp.name == "wc2.1_2.5m_tmin_1999-01.tif")
+    arr = read_geotiff(sample)[0]
+    want = {(c, r) for c, r in _tile_windows(tw, th, 128, 128, 64)
+            if np.isnan(arr[r:r + 128, c:c + 128]).mean() <= 0.85}
+    got = {tuple(int(v) for v in p.name.split(".")[-3:-1])
+           for p in (pre / "world-clim" / WC.tiles_dir / "wc2.1" / "2.5m" / "tmin").glob("wc2.1_2.5m_tmin_1999-01.*.tif")}
+    if got != want:
+        raise AssertionError(f"X tiles of {sample.name}: {len(got)} windows written, {len(want)} expected")
+
+    feathers = {p.relative_to(pre / D.feather_path).as_posix(): read_feather(p)
+                for p in sorted((pre / D.feather_path).rglob("*.feather"))}
+    zscore_ref, minmax_ref = x_stats_reference(raw, pre)
+    z = feathers[D.zscore_stats_filename]
+    worst = 0.0
+    for row in z.rows():
+        ref = zscore_ref[row[D.variable]]
+        for k, col in enumerate((S.mean, S.std, S.min, S.max, S.normalized_min, S.normalized_max)):
+            worst = max(worst, abs(row[col] - ref[k]) / max(abs(ref[k]), 1e-300))
+    mm = feathers[D.min_max_stats_filename]
+    if len(mm) != len(minmax_ref) or len(z) != len(zscore_ref):
+        raise AssertionError(f"X statistics: {len(z)} z-score and {len(mm)} min-max rows, expected "
+                             f"{len(zscore_ref)} and {len(minmax_ref)}")
+    for row in mm.rows():
+        ref = minmax_ref[row[D.file_path]]
+        for k, col in enumerate((S.min, S.max, S.global_min, S.global_max)):
+            worst = max(worst, abs(row[col] - ref[k]) / max(abs(ref[k]), 1e-300))
+    print(f"# X statistics: {len(z)} z-score and {len(mm)} min-max rows against a float64 recomputation: "
+          f"largest relative difference {worst:.3e} (tol {X_STATS_RTOL:g})")
+    if not worst <= X_STATS_RTOL:
+        raise AssertionError("X: the statistics disagree with the recomputation")
+    rows = {k: len(t) for k, t in feathers.items()}
+    print(f"# X prepared: {len(resized)} resized rasters of {th}x{tw}, {len(tiles)} tiles, {len(feathers)} feathers "
+          f"read back by io/feather.py: {json.dumps(rows)}")
+    return dict(resized=len(resized), tiles=len(tiles), rows=rows)
+
+
+def x_train(device, out: Path, run_root: Path, extra: list) -> dict:
+    """``cli.train.main`` on the prepared files: the fit's Trainer, launches,
+    metrics rows, wall, peak memory and reads by codec."""
+    from climsr_tpu_torch.cli.train import main as train_main
+    from climsr_tpu_torch.io import geotiff
+
+    counters = kernel_counters()
+    zero_counts(counters)
+    geotiff.READS.reset()
+    trainers = []
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with keep_trainers(trainers):
+        hp = train_main(["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={out}", "logger=csv",
+                         "print_config=false", "trainer.log_every_n_steps=1", f"training.output_dir={run_root}",
+                         *extra], device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (run_dir,) = (run_root / "outputs" / "runs" / "esrgan").iterdir()
+    rows = metric_rows(run_dir / "metrics.csv")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else float("nan")
+    return dict(trainer=trainers[0], hp=hp, wall=wall, run_dir=run_dir, launches=counts(counters), peak_gb=peak,
+                reads=(geotiff.READS.native, geotiff.READS.python),
+                train=[r for r in rows if "train/loss" in r], val=[r for r in rows if "val/rmse" in r])
+
+
+def x_profiled_steps(device, tr, what: str, steps: int = X_PROFILED_STEPS, cold: bool = False) -> tuple:
+    """``steps`` more training steps of a fitted Trainer (its logger off) under
+    the profiler; with ``cold`` the dataset's tile cache is emptied first, so
+    the host loaders read every tile from its file again, as in a first
+    epoch. Returns (samples/s, the device's busy share in percent) of the
+    window; on the CPU the steps run unprofiled and the share is NaN."""
+    tr.metric_logger.enabled = False
+    tr.trainer_cfg.limit_train_batches = steps
+    if cold:
+        tr.dm.train_dataset._tile_cache.clear()
+    samples = steps * tr.dm.cfg.batch_size
+    wall = {}
+
+    def window():
+        t = time.perf_counter()
+        tr.train_epoch(99)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall["s"] = time.perf_counter() - t
+
+    if device.type != "cuda":
+        window()
+        return samples / wall["s"], float("nan")
+    kernels = device_breakdown(window, top=4, what=f"X {what}: {steps} training steps ({samples} samples)")
+    return samples / wall["s"], 100 * sum(e.self_device_time_total for e in kernels) / 1e6 / wall["s"]
+
+
+@contextlib.contextmanager
+def recorded_shapes():
+    """Record, by kernel, the ((n, h, w), widths, dtype) of every launch of
+    kernels A, B1 and C while the block runs (B2 runs at B1's shapes, on the
+    feat of each B1 forward). The counts are untouched."""
+    from climsr_tpu_torch.ops import head_bwd, rdb
+
+    shapes = {}
+    launch_rdb, launch_c = rdb._launch_forward, head_bwd._launch_conv9
+
+    def record(counter, t, widths):
+        shapes.setdefault(counter.__name__, set()).add(((t.shape[0], *t.shape[2:]), widths, t.dtype))
+
+    def rdb_launch(x, weights, x0, packed, save, counter):
+        record(counter, x, rdb._widths(weights))
+        return launch_rdb(x, weights, x0, packed, save, counter)
+
+    def c_launch(g, weight, counter):
+        record(counter, g, g.shape[1])
+        return launch_c(g, weight, counter)
+
+    rdb._launch_forward, head_bwd._launch_conv9 = rdb_launch, c_launch
+    try:
+        yield shapes
+    finally:
+        rdb._launch_forward, head_bwd._launch_conv9 = launch_rdb, launch_c
+
+
+def x_check_shapes(device, shapes: dict) -> None:
+    """Each kernel at every shape path X launched it at, against its plain
+    version at the phase's tolerance (the launches here are not counted): A
+    at all of them, B1, B2 and C at those phases 6 did not check."""
+    a, b1, c = (shapes.get(k, set()) for k in ("fused_rdb", "fused_rdb_fwd_save", "conv9_dx_c0"))
+    odd = {(k, w, dt) for k, got in (("A", a), ("B1", b1)) for _, w, dt in got if w != (NF, GC)}
+    odd |= {("C", ch, dt) for _, ch, dt in c if ch != NF}
+    odd |= {(k, dt) for k, got in (("A", a), ("B1", b1), ("C", c)) for _, _, dt in got
+            if dt not in (torch.float32, torch.bfloat16)}
+    if odd:
+        raise AssertionError(f"X: kernels launched at widths or dtypes no phase checks: {sorted(map(str, odd))}")
+    a_shapes, b_shapes, c_shapes = (sorted({n for n, _, _ in got}) for got in (a, b1, c))
+    print(f"# X kernel shapes launched (n, h, w): A {a_shapes}; B1 and B2 {b_shapes}; C {c_shapes}; "
+          f"A checked here at all of them, B1, B2 and C beyond phase 6's")
+    if device.type == "cuda" and not (a_shapes and b_shapes and c_shapes):
+        raise AssertionError("X: no launch of A, B1 or C was recorded")
+    phase_kernel(device, shapes=a_shapes, timed=())
+    extra_b = [n for n in b_shapes if n not in B_CHECKED]
+    extra_c = [n for n in c_shapes if n not in C_CHECKED]
+    if extra_b:
+        phase_train_kernels(device, shapes=extra_b)
+    if extra_c:
+        phase_head_kernel(device, shapes=extra_c)
+
+
+def phase_pipeline(device, root: Path, card: str) -> dict:
+    """X: data preparation -> training from the prepared files -> inference ->
+    result inspection, each through its entry point's ``main(argv)``."""
+    import importlib.util
+
+    from climsr_tpu_torch.cli.inference import main as inference_main
+    from climsr_tpu_torch.cli.inspect_results import main as inspect_main, plots_available
+    from climsr_tpu_torch import consts
+    from climsr_tpu_torch.data.tables import read_feather, write_feather
+    from climsr_tpu_torch.io.geotiff import read_geotiff, write_geotiff
+    from climsr_tpu_torch.io.netcdf import read_climate_series
+    from climsr_tpu_torch.native import native_error
+    from climsr_tpu_torch.ops.pack12 import MAX_ABS_ERR
+    from climsr_tpu_torch.preprocessing.scrape_polish_mountains import build_fallback_table
+    from climsr_tpu_torch.training.callbacks import LogImagesCallback
+    from climsr_tpu_torch.training.checkpoint import CheckpointManager
+
+    D, S = consts.datasets_and_preprocessing, consts.stats
+    disk_before = du(root)  # root holds the earlier phases' files too
+    seconds = {}
+    t = time.perf_counter()
+    raw = make_raw_world(root / "raw")
+    seconds["fabricate"] = time.perf_counter() - t
+    print(f"# X raw world: 3 CRU-TS NetCDF of {X_CRU_MONTHS} x {X_CRU_GRID[0]}x{X_CRU_GRID[1]}, {raw['rasters']} "
+          f"WorldClim GeoTIFFs (4320x8640 and 1080x2160), {du(root / 'raw') / 1e9:.3f} GB, "
+          f"{seconds['fabricate']:.3f} s")
+
+    # 1. data preparation, on the host
+    out = root / "prepared"
+    n_workers = min(8, os.cpu_count() or 1)
+    t = time.perf_counter()
+    steps = x_prepare(raw, out, n_workers)
+    seconds["prepare"] = time.perf_counter() - t
+    print(f"# X data preparation ({n_workers} spawn workers), seconds by step: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()) + f"; {seconds['prepare']:.3f} s with start-up")
+    prepared = x_check_prepared(raw, out)
+    print(f"# X matplotlib importable: {importlib.util.find_spec('matplotlib') is not None} (the plots run only "
+          f"where it is)")
+
+    # 2. training from the prepared files: the tile store on the card, log_images on
+    t = time.perf_counter()
+    fit = x_train(device, out, root / "x_fit", [f"trainer.max_epochs={X_TRAIN_EPOCHS}", "callbacks=[log_images]"])
+    seconds["train"] = time.perf_counter() - t
+    tr, launches = fit["trainer"], fit["launches"]
+    steps_run = len(fit["train"])
+    print(f"# X fit from files: {steps_run} steps of {tr.dm.cfg.batch_size} over {len(tr.dm.train_dataset)} tiles, "
+          f"{len(fit['val'])} validations, {fit['wall']:.3f} s with tests; train/loss "
+          f"{fit['train'][0]['train/loss']:.6f} -> {fit['train'][-1]['train/loss']:.6f}; launches {launches}; "
+          f"peak {fit['peak_gb']:.3f} GB; tile reads native {fit['reads'][0]}, Python codec {fit['reads'][1]} ({card})")
+    nb = tr.config_snapshot["generator"]["nb"]
+    per_step = dict(B1=3 * nb * steps_run, B2=3 * nb * steps_run, C=steps_run)
+    if device.type == "cuda" and (launches["A"] <= 0 or any(launches[k] != v for k, v in per_step.items())):
+        raise AssertionError(f"X fit: expected A > 0 and {per_step} over {steps_run} steps, counted {launches}")
+    if fit["reads"][0] <= 0 or fit["reads"][1] != 0:
+        raise AssertionError(f"X fit: the tiles did not all come through the native reader: {fit['reads']} "
+                             f"({native_error()})")
+    if not all(np.isfinite([r["train/loss"] for r in fit["train"]] + [r["val/rmse"] for r in fit["val"]])):
+        raise AssertionError("X fit: a non-finite loss or metric")
+    store_sps = fit["train"][-1]["train/samples_per_sec"]
+    store_window = x_profiled_steps(device, tr, "store on")
+    if importlib.util.find_spec("matplotlib") is not None:
+        LogImagesCallback(save_figures=True).on_validation_end(tr, 99, {})
+        print(f"# X log_images figure panel: {sorted(p.name for p in (tr.workdir / 'images').glob('*.png'))}")
+
+    # the host loaders, the store off: one epoch, its tiles read from their files
+    t = time.perf_counter()
+    host = x_train(device, out, root / "x_host", ["trainer.max_epochs=1", "trainer.device_resident_data=false",
+                                                  "training.run_test_after_fit=false"])
+    seconds["train_store_off"] = time.perf_counter() - t
+    host_sps = host["train"][-1]["train/samples_per_sec"]
+    cold = x_profiled_steps(device, host["trainer"], "store off, tiles from their files", cold=True)
+    warm = x_profiled_steps(device, host["trainer"], "store off, tiles from the host cache")
+    print(f"# X samples/s from files: store on {store_sps:.2f} (train/samples_per_sec at step {steps_run}), "
+          f"{store_window[0]:.2f} over {X_PROFILED_STEPS} profiled steps at {store_window[1]:.1f}% device busy; "
+          f"store off {host_sps:.2f} (host loaders, step {len(host['train'])}, the first epoch), "
+          f"{cold[0]:.2f} at {cold[1]:.1f}% busy with the tiles read from their files, {warm[0]:.2f} at "
+          f"{warm[1]:.1f}% from the host cache; launches store off {host['launches']}; tile reads native "
+          f"{host['reads'][0]}, Python {host['reads'][1]} ({card})")
+    if host["reads"][1] != 0 or (device.type == "cuda" and host["launches"]["B1"] <= 0):
+        raise AssertionError(f"X store off: reads {host['reads']}, launches {host['launches']}")
+
+    # 3. inference from the best checkpoint, with step 2's min-max and z-score tables: the whole globe
+    # from the CRU-TS tmp NetCDF (the GeoTIFF dataset is the europe extent's, 452 x 452), then the
+    # prepared europe-extent CRU-TS GeoTIFFs of tmp
+    mgr = CheckpointManager(fit["run_dir"] / "checkpoints", save_top_k=-1)
+    pre = out / "pre-processed"
+    cru_tmp = raw["cruts"] / "cru_ts4.05.1901.2020.tmp.dat.nc"
+    common = [f"inference.pretrained_model={mgr.path(mgr.best_step)}", "inference.generator_type=esrgan",
+              f"inference.min_max_lookup={pre / 'feather' / 'statistics_min_max.feather'}",
+              f"inference.zscore_lookup={pre / 'feather' / 'statistics_zscore.feather'}",
+              "inference.cruts_variable=tmp", "generator.in_channels=3", "generator.out_channels=1",
+              *[f"generator.{k}={tr.config_snapshot['generator'][k]}" for k in ("nf", "nb", "gc")]]
+    eu_elev = pre / "world-clim" / "europe-extent" / "elev" / "wc2.1_2.5m_elev.tif"
+    eu_land = root / "x_land_mask_europe.tif"
+    elev_arr, elev_profile = read_geotiff(eu_elev)
+    write_geotiff(eu_land, np.where(np.isfinite(elev_arr), 1.0, np.nan).astype(np.float32), elev_profile)
+    runs = {
+        "globe": (["inference.use_netcdf_datasets=true", f"inference.ds_path={cru_tmp}",
+                   f"inference.elevation_file={raw['elevation']}", f"inference.land_mask_file={raw['land_mask']}"],
+                  raw["ocean_hr"]),
+        "europe": ([f"inference.tiff_dir={pre / 'cruts' / 'europe-extent'}", f"inference.elevation_file={eu_elev}",
+                    f"inference.land_mask_file={eu_land}"], ~np.isfinite(elev_arr)),
+    }
+
+    def infer(tag: str, out_tag: str) -> Path:
+        inference_main(common + runs[tag][0] + [f"inference.inference_out_path={root / f'x_sr_{out_tag}'}",
+                                                f"inference.extent_out_path_sr_nc={root / f'x_nc_{out_tag}'}"],
+                       device=device)
+        (nc,) = (root / f"x_nc_{out_tag}").glob("*.tmp.dat.nc")
+        return nc
+
+    counters = kernel_counters()
+    sweeps = {}
+    for tag, (_, ocean) in runs.items():
+        zero_counts(counters)
+        t = time.perf_counter()
+        nc_path = infer(tag, tag)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[f"inference_{tag}"] = wall = time.perf_counter() - t
+        a_inf = counts(counters)["A"]
+        sr = read_climate_series(nc_path, "tmp")
+        ocean = ocean[::-1]  # the NetCDF's rows run south to north
+        pattern_ok = sr.data.shape == (X_CRU_MONTHS, *ocean.shape) and all(
+            np.array_equal(np.isnan(m), ocean) for m in sr.data)
+        print(f"# X inference, {tag}: {X_CRU_MONTHS} months in {wall:.3f} s through cli.inference (load, sweep, "
+              f"GeoTIFFs, NetCDF): {X_CRU_MONTHS / wall:.4f} months/s; A launches {a_inf}; {nc_path.name} "
+              f"{sr.data.shape}, NaN exactly on the ocean: {pattern_ok} ({card})")
+        if (device.type == "cuda" and a_inf <= 0) or not pattern_ok or not np.isfinite(sr.data[:, ~ocean]).all():
+            raise AssertionError(f"X inference {tag}: no A launch, or the NetCDF's shape or land/NaN pattern is wrong")
+        sweeps[tag] = dict(nc=nc_path, launches=a_inf, months_per_s=X_CRU_MONTHS / wall)
+    nc_path = sweeps["globe"]["nc"]
+
+    # the europe sweep again through the plain RDB: every land value within a 12-bit step a side plus the
+    # generator's bf16 tolerance, in the [-1, 1] domain of the global min-max range inference scaled by
+    with plain_rdb():
+        plain_nc = infer("europe", "europe_plain")
+    mm = read_feather(pre / "feather" / "statistics_min_max.feather")
+    mm = mm.filter((mm[D.dataset] == "cru-ts") & (mm[D.variable] == "tmp"))
+    ranges = set(zip(mm[S.global_min].tolist(), mm[S.global_max].tolist()))
+    if len(ranges) != 1:
+        raise AssertionError(f"X: the cru-ts tmp rows hold {len(ranges)} global min-max ranges, expected one")
+    ((lo, hi),) = ranges
+    got = read_climate_series(sweeps["europe"]["nc"], "tmp").data
+    ref = read_climate_series(plain_nc, "tmp").data
+    land = np.isfinite(ref)
+    worst = float(np.max(np.abs(got[land] - ref[land]))) / ((hi - lo) / 2)
+    tol = 2 * MAX_ABS_ERR + GENERATOR_TOL[torch.bfloat16]
+    print(f"# X inference, europe through the kernels against the plain RDB: worst normalized |kernel - plain| "
+          f"{worst:.3e} (tol {tol:.3e}) over {int(land.sum())} land values, NaN alike: "
+          f"{np.array_equal(land, np.isfinite(got))}")
+    if not (worst <= tol) or not np.array_equal(land, np.isfinite(got)):
+        raise AssertionError(f"X inference europe: the kernels' NetCDF disagrees with the plain RDB's ({worst:.3e})")
+
+    # 4. result inspection: the SR NetCDF against the fabricated CRU-TS tmp file
+    peaks = root / "x_peaks.feather"
+    write_feather(build_fallback_table(), peaks)
+    t = time.perf_counter()
+    results = inspect_main([f"result_inspection.ds_temp_nn_path={nc_path}",
+                            f"result_inspection.ds_temp_cru_path={cru_tmp}",
+                            f"result_inspection.peaks_feather={peaks}", f"result_inspection.results_dir={root / 'x_ri'}"])
+    seconds["inspect"] = time.perf_counter() - t
+    csv_rows = {tag: len((root / "x_ri" / f"{tag}.csv").read_text().splitlines()) - 1 for tag in results}
+    r = results["mountain_peaks"]
+    print(f"# X result inspection: MAE {r.mae:.6f}, MSE {r.mse:.6f}, RMSE {r.rmse:.6f} at the mountain peaks; CSV rows "
+          f"{csv_rows}; plots {'written' if plots_available() else 'skipped (no matplotlib)'}")
+    want_rows = {"peaks_feather": 23, "mountain_peaks": 23, "2_locations": 2}
+    if csv_rows != want_rows or not all(np.isfinite([x.mae, x.mse, x.rmse]).all() for x in results.values()):
+        raise AssertionError(f"X result inspection: CSV rows {csv_rows} (expected {want_rows}) or a non-finite error")
+    print(f"# X seconds by step: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; disk used {(du(root) - disk_before) / 1e9:.3f} GB")
+    a_inf = sum(v["launches"] for v in sweeps.values())
+    return dict(launches={k: v + (a_inf if k == "A" else 0) for k, v in launches.items()}, seconds=seconds,
+                prepared=prepared, store_sps=store_sps, host_sps=host_sps, sweeps=sweeps)
+
+
+def du(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the GPU", file=sys.stderr)
@@ -2063,8 +2588,7 @@ def main() -> int:
                 print(f"#   ptxas {name}: {line.strip()}")
 
     # 3. kernel A against its plain version, at the flagship and the reference-default growth widths
-    kernel_a = phase_kernel(device, shapes=((16, 128, 128), (2, 45, 91), *EVAL_SHAPES),
-                            timed=((16, 128, 128), *EVAL_SHAPES))
+    kernel_a = phase_kernel(device, shapes=A_CHECKED, timed=((16, 128, 128), *EVAL_SHAPES))
     kernel_ref = phase_kernel(device, gc=GC_REF)[(16, 128, 128), False]
     phase_kernel(device, gc=48, shapes=((2, 45, 91),))
 
@@ -2151,6 +2675,12 @@ def main() -> int:
             t = time.perf_counter()
             paths[label] = phase(device, root, trainer["tables"], card)["launches"]
             seconds[label] = time.perf_counter() - t
+        # X. the offline pipelines: data preparation -> training from files -> inference -> result inspection
+        t = time.perf_counter()
+        with recorded_shapes() as x_shapes:
+            paths["X"] = phase_pipeline(device, root, card)["launches"]
+        seconds["X"] = time.perf_counter() - t
+        x_check_shapes(device, x_shapes)
         print(f"# launches on each path of this slice, through the kernels (plain runs and checks not "
               f"counted): {json.dumps(paths)}")
         print(f"# seconds by phase of this slice: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))

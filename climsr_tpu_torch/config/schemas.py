@@ -5,9 +5,7 @@ The same groups, field names and defaults as the JAX schemas (reference
 ``climsr/core/config.py``), and the same :func:`from_dict` and
 :func:`infer_generator_config`. One check the JAX package leaves to the
 inference run is made here: ``InferenceConfig.readback`` must be "pack12" or
-"f16" (``__post_init__``, so ``from_dict`` raises too). The data-download,
-preprocessing and result-inspection schemas come with their pipelines
-(``ROADMAP.md``, queue 1, item 10).
+"f16" (``__post_init__``, so ``from_dict`` raises too).
 """
 from __future__ import annotations
 
@@ -72,6 +70,42 @@ def _nested_dataclass(type_str: Any):
         "Optional[TransformsCfg]": TransformsCfg,
     }
     return mapping.get(type_str if isinstance(type_str, str) else getattr(type_str, "__name__", None))
+
+
+@dataclass
+class DataDownloadConfig:
+    download_path: str = "./datasets"
+    parallel_downloads: int = 8
+
+
+@dataclass
+class PreProcessingConfig:
+    data_dir_cruts: str = MISSING
+    data_dir_world_clim: str = MISSING
+    output_path: str = MISSING
+
+    world_clim_elevation_fp: str = MISSING
+    elevation_file: str = MISSING
+    land_mask_file: str = MISSING
+
+    run_cruts_to_tiff: bool = False
+    run_tavg_rasters_generation: bool = False
+    run_statistics_computation: bool = False
+    run_world_clim_resize: bool = False
+    run_world_clim_tiling: bool = False
+    run_train_val_test_split: bool = True
+    run_extent_extraction: bool = False
+    run_z_score_stats_computation: bool = False
+    run_min_max_stats_computation: bool = False
+
+    patch_size: Tuple[int, int] = (128, 128)
+    patch_stride: int = 64
+    n_workers: int = 8
+    threads_per_worker: int = 1
+
+    train_years: Tuple[int, int] = (1961, 1999)
+    val_years: Tuple[int, int] = (2000, 2005)
+    test_years: Tuple[int, int] = (2006, 2020)
 
 
 @dataclass
@@ -313,6 +347,14 @@ class InferenceConfig:
         if self.readback not in READBACKS:
             raise ValueError(f"inference.readback must be one of {READBACKS}, got {self.readback!r}")
 
+
+
+@dataclass
+class ResultInspectionConfig:
+    ds_temp_nn_path: str = MISSING
+    ds_temp_cru_path: str = MISSING
+    peaks_feather: str = MISSING
+    results_dir: str = MISSING
 
 
 def infer_generator_config(generator_cfg: GeneratorConfig, data_config: SuperResolutionDataConfig) -> GeneratorConfig:

@@ -14,8 +14,8 @@ Parity: ``climsr/data/super_resolution_data_module.py`` —
 - ``model_data_kwargs`` surface for the task (``:174-195``).
 
 The tables are :class:`~climsr_tpu_torch.data.tables.Table` s. They are read
-from the feather files under ``data_path`` with ``read_feather`` (which needs
-pandas), unless the caller passes ``tables``: a dict keyed by the path under
+from the feather files under ``data_path`` with ``read_feather`` (the port's
+own codec), unless the caller passes ``tables``: a dict keyed by the path under
 ``pre-processed/feather/`` (``"tmin/train.feather"``, ...), as
 ``make_synthetic_dataset`` returns it. Either way the same code runs.
 """

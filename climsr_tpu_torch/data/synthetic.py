@@ -14,8 +14,8 @@ s keyed by their path under ``pre-processed/feather/`` (what
     statistics_min_max.feather
 
 With ``write_index=True`` (the default, as in the JAX package) it also writes
-them as feather files, which needs pandas; ``write_index=False`` writes only
-the tiles and needs neither pandas nor pyarrow. Fields are smooth random
+them as feather files (``io/feather.py``); ``write_index=False`` writes only
+the tiles. Fields are smooth random
 climate-like rasters (superposed cosines + terrain-correlated signal) so SR
 models have learnable structure.
 """

@@ -9,15 +9,18 @@ the few operations the data path uses: a boolean filter
 merge on key columns (``:84-86``), row access and a keyed lookup (pandas'
 ``set_index(...).at[...]`` / ``.loc[...]``).
 
-:func:`read_feather` and :func:`write_feather` are the port's only pandas
-users: they import it inside the call and convert. :func:`as_table` converts
-a DataFrame handed to a port entry point where it enters.
+:func:`read_feather` and :func:`write_feather` go through the port's own
+feather codec (``climsr_tpu_torch.io.feather``): no pandas, no pyarrow.
+:func:`as_table` converts a DataFrame handed to a port entry point where it
+enters.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from climsr_tpu_torch.io import feather
 
 
 def _column(values: Sequence[Any]) -> np.ndarray:
@@ -125,18 +128,10 @@ def as_table(obj: Any) -> Table:
 
 
 def read_feather(path) -> Table:
-    """A feather file as a :class:`Table`. Needs pandas (and pyarrow)."""
-    try:
-        import pandas as pd
-    except ImportError as e:
-        raise ImportError(f"reading {path} needs pandas, which is not installed: {e}") from e
-    return as_table(pd.read_feather(path))
+    """A feather file (uncompressed or LZ4, as pandas writes it) as a :class:`Table`."""
+    return Table(feather.read(path))
 
 
 def write_feather(table: Table, path) -> None:
-    """Write ``table`` as a feather file, as pandas' ``to_feather``. Needs pandas (and pyarrow)."""
-    try:
-        import pandas as pd
-    except ImportError as e:
-        raise ImportError(f"writing {path} needs pandas, which is not installed: {e}") from e
-    pd.DataFrame({k: table[k] for k in table.columns}).reset_index(drop=True).to_feather(path)
+    """Write ``table`` as a feather file that ``pd.read_feather`` reads as the same frame."""
+    feather.write({k: table[k] for k in table.columns}, path)

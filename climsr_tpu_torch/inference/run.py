@@ -292,7 +292,7 @@ def run_inference(cfg, cruts_variables: List[str], generator_kwargs: Optional[di
     """Inference for each CRU-TS variable. ``cfg`` carries the fields of
     ``InferenceConfig`` (pretrained_model, generator_type, min_max_lookup,
     ds_path, ...) as attributes. The feather lookups are read with
-    ``read_feather`` (which needs pandas)."""
+    ``read_feather``."""
     dev = resolve_device(device)
     model = load_generator(cfg.pretrained_model, cfg.generator_type, generator_kwargs, device=dev)
     min_max_all = read_feather(cfg.min_max_lookup)

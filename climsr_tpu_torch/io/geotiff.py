@@ -13,7 +13,10 @@ TIFF 6.0 + GeoTIFF 1.1 the pipeline needs:
   (zlib) / LZW, single-band gray (what CRU-TS/WorldClim exports use). Any
   other layout (several bands, an unlisted sample type) raises ``ValueError``.
 
-A copy of ``climsr_tpu.io.geotiff`` without its native and PIL read paths.
+A copy of ``climsr_tpu.io.geotiff`` without its PIL read path. :func:`read_raster`
+(the dataset hot path) goes through the native decoder
+(``climsr_tpu_torch.native``) first, as the JAX package's does, and
+:data:`READS` counts which reader took each file.
 
 A ``GeoProfile`` mirrors the slice of rasterio's profile dict the reference
 passes around (transform origin, pixel scale, nodata, CRS).
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import threading
 import zlib
 from pathlib import Path
 from typing import Optional, Tuple, Union
@@ -369,6 +373,35 @@ def read_geotiff(path: Union[str, Path]) -> Tuple[np.ndarray, GeoProfile]:
     return np.array(arr), profile
 
 
+class ReadCounts:
+    """How many files :func:`read_raster` decoded natively and how many the
+    Python codec read (the loaders call it from several threads)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.native = 0
+        self.python = 0
+
+    def add(self, native: bool) -> None:
+        with self._lock:
+            if native:
+                self.native += 1
+            else:
+                self.python += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.native = self.python = 0
+
+
+READS = ReadCounts()
+
+
 def read_raster(path: Union[str, Path]) -> np.ndarray:
-    """Array-only read (the dataset hot path)."""
-    return read_geotiff(path)[0]
+    """Array-only read (the dataset hot path): the native C++ decoder where it
+    takes the file, the Python codec otherwise (climsr_tpu/io/geotiff.py:399-410)."""
+    from climsr_tpu_torch.native import read_raster_native
+
+    arr = read_raster_native(path)
+    READS.add(arr is not None)
+    return arr if arr is not None else read_geotiff(path)[0]

@@ -10,22 +10,158 @@ Trainer where the JAX Trainer calls it (``climsr_tpu/training/loop.py``):
 - ``on_train_epoch_end(trainer, epoch)`` (not for a preempted epoch),
 - ``on_validation_end(trainer, epoch, val_metrics)``.
 
-:class:`LearningRateMonitor`, :class:`DeviceStatsMonitor` (CUDA allocator
-statistics from ``torch.cuda.memory_stats``) and :class:`ModelPruningCallback`
-(``model_pruning``, and ``lottery_ticket`` with the rewind) are ported.
-``log_images`` (matplotlib grids) raises, naming its ``ROADMAP.md`` item; no
+:class:`LogImagesCallback` (``log_images``), :class:`LearningRateMonitor`,
+:class:`DeviceStatsMonitor` (CUDA allocator statistics from
+``torch.cuda.memory_stats``) and :class:`ModelPruningCallback`
+(``model_pruning``, and ``lottery_ticket`` with the rewind) are ported; no
 experiment preset of the repo selects a callback.
 """
 from __future__ import annotations
 
 import logging
+import os
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
+import climsr_tpu_torch.consts as consts
+
+B = consts.batch_items
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "ROADMAP.md, queue 1, item 11: log_images"
+# matplotlib's 256-entry jet, inferno and gray tables (``Colormap._lut[:256, :3]``,
+# float64), saved once from matplotlib so the grids need no matplotlib
+COLORMAPS_FILE = Path(__file__).with_name("colormaps.npz")
+_colormaps: Dict[str, np.ndarray] = {}
+
+
+def colormap(name: str) -> np.ndarray:
+    """A (256, 3) float64 colour table by matplotlib's name."""
+    if not _colormaps:
+        with np.load(COLORMAPS_FILE) as tables:
+            _colormaps.update({k: tables[k] for k in tables.files})
+    return _colormaps[name]
+
+
+def _colorize(arr: np.ndarray, mask: Optional[np.ndarray] = None, cmap_name: str = "jet") -> np.ndarray:
+    """(H, W) float -> (H, W, 3) uint8 with NaN/ocean painted black, as
+    matplotlib's ``cmap(np.ma.masked_invalid(norm))`` with ``set_bad("black")``
+    colours it: index ``min(int(norm * 256), 255)``, then ``uint8(rgb * 255)``."""
+    arr = np.asarray(arr, np.float32).copy()
+    if mask is not None:
+        arr[mask <= 0] = np.nan
+    finite = np.isfinite(arr)
+    vmin = np.nanmin(arr[finite]) if finite.any() else 0.0
+    vmax = np.nanmax(arr[finite]) if finite.any() else 1.0
+    norm = (arr - vmin) / (vmax - vmin + 1e-12)
+    bad = ~np.isfinite(norm)  # masked_invalid: NaN and inf
+    with np.errstate(invalid="ignore"):
+        index = np.clip(np.where(bad, 0, norm) * 256, 0, 255).astype(np.int64)
+    rgb = (colormap(cmap_name)[index] * 255).astype(np.uint8)
+    rgb[bad] = 0
+    return rgb
+
+
+def make_grid(images: np.ndarray, masks: Optional[np.ndarray], nrow: int = 8, cmap: str = "jet") -> np.ndarray:
+    """(N, H, W) stack -> single (GH, GW, 3) uint8 grid image."""
+    n, h, w = images.shape[:3]
+    ncol = min(nrow, n)
+    nrows = (n + ncol - 1) // ncol
+    grid = np.zeros((nrows * h, ncol * w, 3), np.uint8)
+    for i in range(n):
+        r, c = divmod(i, ncol)
+        m = masks[i] if masks is not None else None
+        grid[r * h : (r + 1) * h, c * w : (c + 1) * w] = _colorize(images[i], m, cmap)
+    return grid
+
+
+class LogImagesCallback:
+    """Validation image grids (the reference's LogImagesCallback,
+    ``climsr/core/callbacks.py:39-440``; JAX ``climsr_tpu/training/callbacks.py:58-149``).
+
+    After each validation the first ``max_images`` validation samples go
+    through the generator (inference mode, so the ESRGAN's blocks run kernel
+    A on the card) and six grids are logged: HR, elevation, nearest and
+    cubic once (the first validation), SR and |SR - HR| every time, with
+    the jet, inferno and gray tables and the ocean black. With
+    ``save_figures`` a matplotlib panel per validation goes to
+    ``<workdir>/images`` (matplotlib imported in the call). The port runs one
+    process, so there is no rank to check.
+    """
+
+    def __init__(self, max_images: int = 8, save_figures: bool = False):
+        self.max_images = max_images
+        self.save_figures = save_figures
+        self._static_logged = False
+
+    def on_validation_end(self, trainer, epoch: int, val_metrics: Dict[str, float]) -> None:
+        import torch
+
+        from climsr_tpu_torch.data.pipeline import collate, to_nchw
+        from climsr_tpu_torch.models import apply_generator_batch
+
+        dataset = trainer.val_loader.dataset
+        n = min(self.max_images, len(dataset))
+        batch = collate([dataset[i] for i in range(n)])  # the first val batch's first n samples
+        with torch.inference_mode():
+            sr = apply_generator_batch(trainer.generator_type, trainer.g_model,
+                                       {k: to_nchw(batch[k]) for k in (B.lr, B.elevation, B.mask)},
+                                       trainer.compute_dtype)
+        sr = sr.float().cpu().numpy()[:, 0]
+        hr = batch[B.hr][..., 0]
+        mask = batch[B.mask][..., 0]
+        error = np.abs(sr - hr)
+
+        step = trainer.global_step
+        mlog = trainer.metric_logger
+        if not self._static_logged:
+            mlog.log_image("val/hr_images", make_grid(hr, mask, cmap="jet"), step)
+            mlog.log_image("val/elevation", make_grid(batch[B.elevation][..., 0], mask, cmap="inferno"), step)
+            mlog.log_image("val/nearest_interpolation", make_grid(batch[B.nearest][..., 0], mask, cmap="jet"), step)
+            mlog.log_image("val/cubic_interpolation", make_grid(batch[B.cubic][..., 0], mask, cmap="jet"), step)
+            self._static_logged = True
+        mlog.log_image("val/sr_images", make_grid(sr, mask, cmap="jet"), step)
+        mlog.log_image("val/error", make_grid(error, mask, cmap="gray"), step)
+
+        if self.save_figures:
+            self._save_fig(trainer, batch, sr, error, epoch, step)
+
+    def _save_fig(self, trainer, batch, sr, error, epoch: int, step: int) -> None:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        img_dir = os.path.join(trainer.workdir, "images")
+        os.makedirs(img_dir, exist_ok=True)
+        hr = batch[B.hr][..., 0]
+        nearest = batch[B.nearest][..., 0]
+        cubic = batch[B.cubic][..., 0]
+        mask = batch[B.mask][..., 0]
+        n = hr.shape[0]
+        cols = ["HR", "Interp. Nearest", "Interp. Cubic", "SR", "SR Error"]
+        fig, axes = plt.subplots(n, len(cols), figsize=(3 * len(cols), 3 * n), squeeze=False)
+        for i in range(n):
+            panels = [hr[i], nearest[i], cubic[i], sr[i], error[i]]
+            for j, (title, panel) in enumerate(zip(cols, panels)):
+                ax = axes[i][j]
+                shown = panel.copy()
+                shown[mask[i] <= 0] = np.nan
+                ax.imshow(shown, cmap="jet")
+                ax.set_xticks([])
+                ax.set_yticks([])
+                if j in (1, 2, 3):
+                    diff = (panel - hr[i])[mask[i] > 0]
+                    mae = float(np.abs(diff).mean()) if diff.size else 0.0
+                    rmse = float(np.sqrt(np.square(diff).mean())) if diff.size else 0.0
+                    ax.set_xlabel(f"MAE {mae:.3f} / RMSE {rmse:.3f}", fontsize=8)
+                if i == 0:
+                    ax.set_title(title)
+        out = os.path.join(img_dir, f"figure_epoch={epoch:03d}_step={step:06d}.png")
+        fig.savefig(out, bbox_inches="tight", dpi=72)
+        plt.close(fig)
+        logger.info("Saved validation figure panel to %s", out)
 
 
 class LearningRateMonitor:
@@ -146,19 +282,12 @@ def _lottery_ticket() -> ModelPruningCallback:
     return ModelPruningCallback(use_lottery_ticket_hypothesis=True)
 
 
-def _not_ported(name: str):
-    def build():
-        raise NotImplementedError(f"callback '{name}' is not ported yet: {_NOT_PORTED}")
-
-    return build
-
-
 CALLBACK_REGISTRY = {
     "learning_rate_monitor": LearningRateMonitor,
     "device_stats_monitor": DeviceStatsMonitor,
     # the reference's GPUStatsMonitor -> the device-stats monitor
     "gpu_stats_monitor": DeviceStatsMonitor,
-    "log_images": _not_ported("log_images"),
+    "log_images": LogImagesCallback,
     "model_pruning": ModelPruningCallback,
     "lottery_ticket": _lottery_ticket,
 }

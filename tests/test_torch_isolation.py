@@ -41,8 +41,33 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "utils.logging", "training.checkpoint", "training.callbacks", "training.loop", "cli.train",
                  "cli.inference", "ops.pixel_shuffle", "models.rcan", "models.drln", "models.rfb_esrgan",
                  "training.batch_probe", "training.lr_finder", "training.hparams_search", "utils.profiling",
-                 "scripts.bench_rdb_widths"):
+                 "scripts.bench_rdb_widths", "io.feather", "native", "preprocessing.preprocessing",
+                 "preprocessing.cleanup", "preprocessing.data_download", "preprocessing.scrape_polish_mountains",
+                 "result_inspection.models", "cli.preprocess", "cli.data_download", "cli.data_preparation",
+                 "cli.inspect_results", "data.utils", "consts.plotting", "consts.result_inspection"):
         assert f"climsr_tpu_torch.{name}" in MODULES
+
+
+def test_feather_io_needs_no_pandas_and_preprocessing_no_torch(tmp_path):
+    """In a fresh interpreter with pandas and pyarrow blocked (an import of
+    either raises): the port writes and reads a feather file. The
+    preprocessing module, which the ``spawn`` pool's workers import, loads no
+    torch."""
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None; sys.modules['pyarrow'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import numpy as np\n"
+        "import climsr_tpu_torch.preprocessing.preprocessing\n"
+        "assert 'torch' not in sys.modules, 'torch loaded'\n"
+        "from climsr_tpu_torch.data.tables import Table, read_feather, write_feather\n"
+        f"path = {str(tmp_path / 't.feather')!r}\n"
+        "write_feather(Table({'s': ['a', None], 'x': [1, 2], 'f': [0.5, np.nan]}), path)\n"
+        "t = read_feather(path)\n"
+        "assert list(t['s']) == ['a', None] and t['x'].tolist() == [1, 2] and np.isnan(t['f'][1])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
 
 
 def test_sources_import_no_jax_and_nothing_of_the_jax_package():

@@ -306,13 +306,13 @@ def test_gan_fine_tune_through_the_trainer(tiny_world, tmp_path):
 
 
 def test_unported_options_raise_naming_their_roadmap_item(tiny_world, tmp_path):
-    """The multi-GPU options (item 8) and ``log_images`` (item 11) still raise,
-    naming their item; the options item 9 and item 11's pruning ported
-    (auto_scale_batch_size, the jax/advanced/pytorch profilers, the pruning
-    callbacks, the search, the LR range test) compose and build."""
+    """The multi-GPU options (item 8) still raise, naming their item; the
+    options of item 9 and the callbacks of item 11 (auto_scale_batch_size, the
+    jax/advanced/pytorch profilers, the pruning callbacks, log_images, the
+    search, the LR range test) compose and build."""
     from climsr_tpu_torch.config.schemas import TrainerConfig
     from climsr_tpu_torch.training import lr_finder
-    from climsr_tpu_torch.training.callbacks import ModelPruningCallback, build_callbacks
+    from climsr_tpu_torch.training.callbacks import LogImagesCallback, ModelPruningCallback, build_callbacks
     from climsr_tpu_torch.training.loop import refuse_unported
 
     for kw, item in ((dict(num_devices=2), "item 8"), (dict(zero_stage=2), "item 8"),
@@ -324,13 +324,11 @@ def test_unported_options_raise_naming_their_roadmap_item(tiny_world, tmp_path):
         else:
             refuse_unported(TrainerConfig(**kw))
     refuse_unported(TrainerConfig(num_devices=1, profiler="simple"))
-    for name in ("log_images", "model_pruning", "lottery_ticket"):
-        if name == "log_images":
-            with pytest.raises(NotImplementedError, match="item 11"):
-                build_callbacks([name])
-        else:
-            (cb,) = build_callbacks([name])
-            assert isinstance(cb, ModelPruningCallback) and cb.use_lottery_ticket_hypothesis == (name != "model_pruning")
+    for name in ("model_pruning", "lottery_ticket"):
+        (cb,) = build_callbacks([name])
+        assert isinstance(cb, ModelPruningCallback) and cb.use_lottery_ticket_hypothesis == (name != "model_pruning")
+    (cb,) = build_callbacks(["log_images"])
+    assert isinstance(cb, LogImagesCallback)
     assert len(build_callbacks(["learning_rate_monitor", "device_stats_monitor", "early_stopping"])) == 2
     lr_finder.lr_range_test.__defaults__, kept = (1e-7, 1.0, 6, 0.98), lr_finder.lr_range_test.__defaults__
     try:
