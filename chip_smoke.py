@@ -215,6 +215,29 @@ X. the offline pipelines, each through its entry point's ``main(argv)`` with
    on the path is recorded, and after it A is checked against its plain
    version at each of them, B1, B2 and C at those phase 6 did not check.
    The launches of every path of W, L, R, Q, H, P and X printed,
+M. the multi-rank code: ``parallel.launch.spawn`` starts 4 ranks (fresh
+   interpreters after this process built every kernel library, so none runs
+   ``nvcc``) in a gloo group over ``tcp://127.0.0.1``, all on ``cuda:0``
+   (NCCL refuses two ranks on one card), against references computed here
+   on one rank and handed over as a file: M1, the flagship pre-training step
+   at global batch 192 (48 a rank), 3 steps at ZeRO stages 0-3 (losses, grad
+   norms, parameters; at stage 3 no full gradient kept); M2, 2 GAN steps at
+   stages 0 and 2 with the discriminator's batch statistics over the data
+   axis; M3, the spatial step at europe extent (4 x 113 x 113 LR, halo 8) on
+   a (1, 4) mesh against the edge-fair unsharded step (the seam error in the
+   interior, the frame-edge error against the plain unsharded model, the
+   gradients), then the step on (1, 4) and with ZeRO-3 on (2, 2), and 2
+   spatial GAN steps on (2, 2) at batch 192 against one rank's edge-fair
+   step (the generator on the frames reflect-padded as the shards pad them); M4, RCAN's
+   channel attention at 64 channels with the exact pool against the
+   unsharded pool and a local-pool control, and RCAN 10 x 20 x 64 sharded;
+   M5, ``cli.inference`` with ``inference.spatial_shard=true`` (2 whole-globe
+   months, halo 32; rank 0 writes) against one rank's whole-frame and tiled
+   runs; M6, ``cli.train`` at ZeRO-2 over the 4 ranks on phase 13's set, then
+   with ``plugins=spatial_shard`` (halo 4: a 128-px tile leaves 8 LR rows a
+   rank), each best ``.ckpt`` loaded in one rank with ``strict=True``. Each
+   part's launches are counted from 0 on every rank; every launch's shape is
+   recorded and A, B1, B2 and C are checked at them after the phase,
 14. one JSON line with every kernel (the launches of A, B1, B2 and C are
    phase 13's, and A's times, bound and error are per launch over phase 13's
    eval shapes, from phase 3), the card line, then the device line as the
@@ -1345,7 +1368,8 @@ def phase_trainer(device, step_ms: float, card: str, root: Path) -> dict:
           f"{TRAIN_N / step_ms * 1e3:.2f} for phase 7's bare step at batch {TRAIN_N}; fit + test {wall:.3f} s "
           f"({plain_wall:.3f} s plain); synthetic set {data_s:.3f} s ({card})")
     return dict(launches=launches, samples_per_sec=sps, eval_sizes=eval_sizes, tables=tables,
-                best_ckpt=mgr.path(mgr.best_step))
+                best_ckpt=mgr.path(mgr.best_step), train_loss=[r["train/loss"] for r in train],
+                val_rmse=[r["val/rmse"] for r in val])
 
 
 # ---- phases A-D: the RCAN, DRLN and RFB-ESRGAN families ---------------------
@@ -2351,22 +2375,22 @@ def recorded_shapes():
         rdb._launch_forward, head_bwd._launch_conv9 = launch_rdb, launch_c
 
 
-def x_check_shapes(device, shapes: dict) -> None:
-    """Each kernel at every shape path X launched it at, against its plain
-    version at the phase's tolerance (the launches here are not counted): A
-    at all of them, B1, B2 and C at those phases 6 did not check."""
+def x_check_shapes(device, shapes: dict, label: str = "X") -> None:
+    """Each kernel at every shape path ``label`` (X, M) launched it at, against
+    its plain version at the phase's tolerance (the launches here are not
+    counted): A at all of them, B1, B2 and C at those phase 6 did not check."""
     a, b1, c = (shapes.get(k, set()) for k in ("fused_rdb", "fused_rdb_fwd_save", "conv9_dx_c0"))
     odd = {(k, w, dt) for k, got in (("A", a), ("B1", b1)) for _, w, dt in got if w != (NF, GC)}
     odd |= {("C", ch, dt) for _, ch, dt in c if ch != NF}
     odd |= {(k, dt) for k, got in (("A", a), ("B1", b1), ("C", c)) for _, _, dt in got
             if dt not in (torch.float32, torch.bfloat16)}
     if odd:
-        raise AssertionError(f"X: kernels launched at widths or dtypes no phase checks: {sorted(map(str, odd))}")
+        raise AssertionError(f"{label}: kernels launched at widths or dtypes no phase checks: {sorted(map(str, odd))}")
     a_shapes, b_shapes, c_shapes = (sorted({n for n, _, _ in got}) for got in (a, b1, c))
-    print(f"# X kernel shapes launched (n, h, w): A {a_shapes}; B1 and B2 {b_shapes}; C {c_shapes}; "
+    print(f"# {label} kernel shapes launched (n, h, w): A {a_shapes}; B1 and B2 {b_shapes}; C {c_shapes}; "
           f"A checked here at all of them, B1, B2 and C beyond phase 6's")
     if device.type == "cuda" and not (a_shapes and b_shapes and c_shapes):
-        raise AssertionError("X: no launch of A, B1 or C was recorded")
+        raise AssertionError(f"{label}: no launch of A, B1 or C was recorded")
     phase_kernel(device, shapes=a_shapes, timed=())
     extra_b = [n for n in b_shapes if n not in B_CHECKED]
     extra_c = [n for n in c_shapes if n not in C_CHECKED]
@@ -2552,6 +2576,674 @@ def phase_pipeline(device, root: Path, card: str) -> dict:
                 prepared=prepared, store_sps=store_sps, host_sps=host_sps, sweeps=sweeps)
 
 
+# ---- phase M: the multi-rank code, 4 gloo ranks sharing the one card --------
+
+M_RANKS = 4
+M_STEPS, M_GAN_STEPS = 3, 2  # M1's and M2's steps per ZeRO stage
+M_EU_N, M_HALO = 4, 8  # M3: europe-extent frames (LR 113 -> HR 452) and the plugin's halo
+M_RCAN_N = 2  # M4: europe-extent frames through RCAN at its published widths
+M_MONTHS, M_INFER_HALO = 2, 32  # M5: whole-globe months and halo
+# M3/M4, rows of the output within this many LR rows of the frame's top or
+# bottom: the sharded path reflects there once where the model zero-pads at
+# every conv, a boundary choice no halo removes (scripts/measure_halo_error.py)
+M_EDGE_ROWS = 16
+# M4, the exact pool at RCAN's width on the card in f32 against the unsharded
+# pool (as tests/test_torch_spatial.py on the CPU); the local-pool control
+# must differ by more than 100x that
+M_POOL_TOL = 1e-4
+# M1, M2: the ranks against one rank on the same global batch, bounds set from
+# the card's readings (NVIDIA H100 80GB HBM3, 700 W: M1 losses 9.4e-08, grad
+# norms 2.4e-04, parameters 2.5e-05 rel-L2; M2 losses 1.7e-04, D's running
+# variances 5.4e-05, parameters 1.4e-04), far under what a rank training on its
+# slice alone or a ZeRO update left unpublished would give. M1's parameter
+# error must also be within M_MOVE_SHARE of how far the steps moved them; M2's
+# (bf16 D gradients, whose summation order alone moves D ~7% of its steps)
+# within M_CONTROL_SHARE of a single rank's GAN steps on one rank's slice alone
+M_LOSS_TOL, M_NORM_TOL, M_PARAM_TOL, M_GAN_TOL = 1e-5, 2e-3, 1e-3, 1e-3
+M_MOVE_SHARE, M_CONTROL_SHARE = 0.05, 0.2
+# M6: cli.train at ZeRO-2 over the ranks against phase 13's single-rank run of
+# the same experiment on the same set: train/loss, and val/rmse (each eval
+# batch split over the ranks); the spatial plugin (halo 4 < the receptive
+# field) against the same run at M6_SPATIAL_TOL
+M6_TOL, M6_SPATIAL_TOL = 1e-4, 1e-2
+# M5: one rank's default tiled run against its whole frame, of the half range:
+# max and mean in the interior, max at the frame's left and right edge columns
+# (the card's readings: 9.4e-02, 3.7e-03, 8.9e-01; at 32 px of overlap 3.3e-02,
+# 3.0e-03, 8.9e-01)
+M5_TILED_MAX, M5_TILED_MEAN, M5_TILED_EDGE = 0.3, 1e-2, 1.0
+
+
+def m_batch(n: int, lr_h: int, lr_w: int, seed: int) -> dict:
+    """Seeded NCHW fusion inputs and an HR target, on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, 3, lr_h, lr_w, generator=gen)
+    hr = torch.repeat_interleave(torch.repeat_interleave(x[:, :1], 4, 2), 4, 3)
+    hr = (hr + 0.1 * torch.randn(hr.shape, generator=gen)).clamp(-1, 1)
+    return {"lr": x, "hr": hr, "elevation": torch.randn(n, 1, 4 * lr_h, 4 * lr_w, generator=gen),
+            "mask": (torch.rand(n, 1, 4 * lr_h, 4 * lr_w, generator=gen) > 0.3).float()}
+
+
+def m_pretrain(device, steps: int, stage: int = 0, mesh=None, spatial=None, batch=None):
+    """The flagship ESRGAN's pre-training steps (bf16, AdamW at a constant lr):
+    (losses, grad norms, state); one rank when ``mesh`` is None."""
+    from climsr_tpu_torch.config.schemas import OptimizerConfig
+    from climsr_tpu_torch.models import create_generator
+    from climsr_tpu_torch.training.optimizers import build_optimizer
+    from climsr_tpu_torch.training.tasks.pretrain import make_pretrain_step
+    from climsr_tpu_torch.training.train_state import TrainState
+
+    batch = {k: v.to(device) for k, v in (batch or train_batch()).items() if k in ("lr", "hr", "elevation", "mask")}
+    model = create_generator("esrgan", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                             device=device, train=True, in_channels=3, out_channels=1, nf=NF, nb=NB, gc=GC)
+    tx = build_optimizer(OptimizerConfig(name="adamw", lr=1e-4, weight_decay=1e-4), lambda s: 1e-4,
+                         gradient_clip_val=1.0, device=device)
+    state = TrainState.create(model, tx, zero_stage=stage, mesh=mesh)
+    step = make_pretrain_step(model, "esrgan", compute_dtype=torch.bfloat16, spatial=spatial, device=device,
+                              zero=None if mesh is None else {"stage": stage})
+    losses, norms = [], []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(metrics["train/loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    return losses, norms, state
+
+
+class _EdgeFair(torch.nn.Module):
+    """The fusion generator on its inputs reflect-padded by ``halo`` LR rows
+    (x4 for the HR ones) at the top and bottom, cropped back: the unsharded
+    model under the sharded path's boundary condition (M3's spatial GAN)."""
+
+    def __init__(self, model, halo: int):
+        super().__init__()
+        self.model, self.halo = model, halo
+
+    def forward(self, lr, elev, mask):
+        import torch.nn.functional as F
+
+        h = self.halo
+        xs = [F.pad(x, (0, 0, h * s, h * s), mode="reflect") for x, s in ((lr, 1), (elev, 4), (mask, 4))]
+        return self.model(*xs)[:, :, 4 * h: -4 * h]
+
+
+def m_gan(device, steps: int, stage: int = 0, mesh=None, spatial=None, edge_fair_halo: int = 0, n: int = TRAIN_N):
+    """The GAN steps of phase 10 (VGG19 to conv5_4 on seeded weights, the
+    ESRGAN discriminator with BatchNorm; Adam at eps 1e-3, the generator's
+    output scaled to the targets'): ([metrics per step], state).
+    ``spatial`` H-shards the generator; ``edge_fair_halo`` runs it on one
+    rank under the sharded path's boundary condition instead; ``n`` takes the
+    first ``n`` samples of the batch."""
+    from climsr_tpu_torch.config.schemas import OptimizerConfig
+    from climsr_tpu_torch.losses.perceptual import build_perceptual_loss
+    from climsr_tpu_torch.models import create_discriminator, create_generator
+    from climsr_tpu_torch.training.optimizers import build_optimizer
+    from climsr_tpu_torch.training.tasks.gan import make_gan_step
+    from climsr_tpu_torch.training.train_state import GANTrainState
+
+    batch = {k: v[:n].to(device) for k, v in train_batch().items() if k in ("lr", "hr", "elevation", "mask")}
+    dtype = torch.bfloat16
+    g = create_generator("esrgan", dtype=dtype, generator=torch.Generator().manual_seed(0), device=device,
+                         train=True, in_channels=3, out_channels=1, nf=NF, nb=NB, gc=GC)
+    d = create_discriminator("esrgan", dtype=dtype, generator=torch.Generator().manual_seed(1), device=device,
+                             train=True, in_channels=1, out_channels=64, hr_size=4 * TRAIN_LR)
+    with torch.no_grad():
+        # sr on the targets' scale, as parallel/cases.py: an untrained
+        # generator's near-constant output leaves channels of D's first
+        # BatchNorm with a batch variance under its eps, where x - mean cancels
+        # and any two summation orders of the statistics (one rank, or a sum
+        # over ranks) part D's gradients by several percent
+        g.srcnn.conv3.weight.mul_(20.0)
+    # eps 1e-3, as tests/test_torch_gan.py: at Adam's default 1e-8 the first
+    # update moves a weight whose gradient is near zero by a full step of
+    # either sign, so the summation order of its bf16 gradient (one rank, or a
+    # sum over ranks) would decide it (D's parameters 2.3e-03 rel-L2 apart)
+    tx = build_optimizer(OptimizerConfig(name="adam", lr=1e-4, weight_decay=1e-4, eps=1e-3), lambda s: 1e-4,
+                         device=device)
+    state = GANTrainState.create(g, tx, d, tx, zero_stage=stage, mesh=mesh)
+    if edge_fair_halo:
+        g = state.g_model = _EdgeFair(g, edge_fair_halo)
+    step = make_gan_step(g, d, "esrgan", perceptual_fn=build_perceptual_loss(compute_dtype=dtype, cutoff="conv5_4",
+                                                                              device=device),
+                         compute_dtype=dtype, device=device, zero=None if mesh is None else {"stage": stage},
+                         spatial=spatial)
+    trace = []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        trace.append({k: v.item() for k, v in metrics.items()})
+    return trace, state
+
+
+def m_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of ``fn`` between device syncs (a collective's time from
+    ranks sharing one card: an overhead figure, not a multi-GPU one)."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times[1:])
+
+
+def m_flat(named) -> torch.Tensor:
+    return torch.cat([t.detach().float().reshape(-1) for _, t in named])
+
+
+def m_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-12)).item()
+
+
+def m_spatial_refs(device, model, batch: dict, halo: int) -> dict:
+    """M3/M4's references from one rank: the unsharded forward, and the
+    edge-fair one (the frame reflect-padded as the sharded path pads it: its
+    bottom to a multiple of the ranks, then ``halo`` rows a side; applied
+    whole and cropped), with the gradients of the mean absolute error to
+    ``hr`` over the true rows."""
+    import torch.nn.functional as F
+
+    h = batch["lr"].shape[2]
+    pad = (-h) % M_RANKS
+    args = [batch[k].to(device=device, dtype=torch.bfloat16) for k in ("lr", "elevation", "mask")]
+    hr = batch["hr"].to(device).float()
+    out = {}
+    for tag in ("unsharded", "fair"):
+        xs = args
+        if tag == "fair":
+            xs = [F.pad(F.pad(x, (0, 0, 0, pad * s), mode="reflect"), (0, 0, halo * s, halo * s), mode="reflect")
+                  for x, s in zip(args, (1, 4, 4))]
+        model.zero_grad()
+        sr = model(*xs)
+        if tag == "fair":
+            sr = sr[:, :, 4 * halo: 4 * (halo + h)]
+        loss = torch.abs(sr.float() - hr).mean()
+        loss.backward()
+        out[tag] = dict(sr=sr.detach().float().cpu(), loss=loss.item(),
+                        grad=m_flat((n, p.grad) for n, p in model.named_parameters()).cpu())
+    return out
+
+
+def m_errors(sr: torch.Tensor, refs: dict) -> dict:
+    """Seam error (against the edge-fair baseline, away from the frame's edge
+    rows) and frame-edge error (against the unsharded model), relative to the
+    reference's largest value."""
+    e = 4 * M_EDGE_ROWS
+    scale = refs["unsharded"]["sr"].abs().max().item()
+    seam = (sr - refs["fair"]["sr"])[:, :, e:-e].abs()
+    edge = (sr - refs["unsharded"]["sr"]).abs()
+    return dict(seam_max=seam.max().item() / scale, seam_rmse=seam.pow(2).mean().sqrt().item() / scale,
+                edge_max=edge.max().item() / scale, edge_rmse=edge.pow(2).mean().sqrt().item() / scale)
+
+
+def m_gather_rows(t: torch.Tensor, mesh, n_rows: int, per: int) -> torch.Tensor:
+    """The frame of ``n_rows`` from every spatial rank's ``per`` rows (the
+    last rank may hold fewer): on every rank."""
+    import torch.distributed as dist
+
+    from climsr_tpu_torch.parallel.mesh import axis_info
+
+    group, _, size = axis_info(mesh, "spatial")
+    padded = torch.zeros(t.shape[0], t.shape[1], per, t.shape[3], dtype=t.dtype, device=t.device)
+    padded[:, :, : t.shape[2]] = t
+    parts = [torch.empty_like(padded) for _ in range(size)]
+    dist.all_gather(parts, padded.contiguous(), group=group)
+    return torch.cat(parts, dim=2)[:, :, :n_rows]
+
+
+def phase_multi_rank(root: str) -> None:
+    """One rank of phase M (started by :func:`phase_multi` under gloo, on
+    ``cuda:0`` with the other ranks): M1-M6 through the port's entry points,
+    each part's kernel launches counted from 0, every launch's shape
+    recorded; the results go to ``root/rank<r>.json`` and ``.pt``."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from climsr_tpu_torch.cli.inference import main as inference_main
+    from climsr_tpu_torch.cli.train import main as train_main
+    from climsr_tpu_torch.models import create_generator
+    from climsr_tpu_torch.models.rcan import CALayer
+    from climsr_tpu_torch.parallel import halo as H
+    from climsr_tpu_torch.parallel.mesh import all_gather_dim, axis_info, create_mesh, reduce_scatter_dim
+
+    root_p = Path(root)
+    rank = dist.get_rank()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = torch.load(root_p / "refs.pt", weights_only=False)
+    counters = kernel_counters()
+    out = {"launches": {}, "seconds": {}}
+    tensors = {}
+
+    def part(label: str):
+        @contextlib.contextmanager
+        def ctx():
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            out["seconds"][label] = time.perf_counter() - t
+            out["launches"][label] = counts(counters)
+        return ctx()
+
+    with recorded_shapes() as shapes:
+        data = create_mesh()
+        # M1: ZeRO stages 0-3 of the pre-training step
+        with part("M1"):
+            for stage in (0, 1, 2, 3):
+                losses, norms, state = m_pretrain(device, M_STEPS, stage, data)
+                p = state.partition
+                full = sum(q.grad is not None for n, q in p.named if p.is_sharded(n))
+                p.materialize()
+                if stage == 3:  # one all-gather, and one reduce-scatter, of every sharded tensor
+                    sharded = [(p.shards[n].detach(), state.model.get_parameter(n).detach(), p.dims[n])
+                               for n, _ in p.named if p.is_sharded(n)]
+                    out["zero_gather_ms"] = m_ms(lambda: [all_gather_dim(s, d, p.group, p.size)
+                                                          for s, _, d in sharded])
+                    out["zero_scatter_ms"] = m_ms(lambda: [reduce_scatter_dim(f, d, p.group, p.size)
+                                                           for _, f, d in sharded])
+                    out["zero_sharded_mb"] = sum(f.numel() * 4 for _, f, _ in sharded) / 1e6
+                out[f"M1 stage {stage}"] = dict(
+                    losses=losses, norms=norms, sharded=sum(map(p.is_sharded, (n for n, _ in p.named))),
+                    full_grads=full, params_rel=m_rel(m_flat(state.model.named_parameters()), refs["M1"]["params"]))
+                del state, p
+        # M2: the GAN step at stages 0 and 2, batch statistics over the data axis
+        with part("M2"):
+            for stage in (0, 2):
+                trace, state = m_gan(device, M_GAN_STEPS, stage, data)
+                for part_ in (state.g_partition, state.d_partition):
+                    if part_ is not None:
+                        part_.materialize()
+                out[f"M2 stage {stage}"] = dict(
+                    trace=trace, running_var_rel=m_rel(
+                        m_flat((n, b) for n, b in state.d_model.named_buffers() if "running_var" in n),
+                        refs["M2"]["running_var"]),
+                    g_rel=m_rel(m_flat(state.g_model.named_parameters()), refs["M2"]["g"]),
+                    d_rel=m_rel(m_flat(state.d_model.named_parameters()), refs["M2"]["d"]))
+                del state
+        # M3: the spatial step at europe extent, on (1, 4) and, with ZeRO-3, on (2, 2)
+        eu = m_batch(M_EU_N, 113, 113, seed=4)
+        with part("M3"):
+            mesh = create_mesh(axes=("data", "spatial"), last_axis_size=M_RANKS)
+            model = create_generator("esrgan", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                                     device=device, train=True, in_channels=3, out_channels=1, nf=NF, nb=NB, gc=GC)
+            fwd = H.spatial_sharded_model_forward(model, "esrgan", mesh, axis="spatial", halo=M_HALO, scale=4)
+            args = [eu[k].to(device=device, dtype=torch.bfloat16) for k in ("lr", "elevation", "mask")]
+            hl = (113 + 3) // M_RANKS  # the frame padded to 116 rows
+            local = [F.pad(a, (0, 0, 0, 3 * s), mode="reflect")[:, :, rank * hl * s:(rank + 1) * hl * s]
+                     for a, s in zip(args, (1, 4, 4))]
+            feat = torch.randn(M_EU_N, NF, hl, 113, device=device, dtype=torch.bfloat16)
+            out["halo_inputs_ms"] = m_ms(lambda: [H._halo_pad_reflect(a, M_HALO * s, mesh, "spatial")
+                                                  for a, s in zip(local, (1, 4, 4))])
+            out["halo_feature_ms"] = m_ms(lambda: H._halo_pad_reflect(feat, M_HALO, mesh, "spatial"))
+            sr, rows = fwd(*args)
+            hr = eu["hr"].to(device)[:, :, rows].float()
+            loss = torch.abs(sr.float() - hr).sum() / eu["hr"].numel()
+            loss.backward()
+            grad = m_flat((n, q.grad) for n, q in model.named_parameters())
+            dist.all_reduce(grad)
+            loss_all = loss.detach().clone()
+            dist.all_reduce(loss_all)
+            frame = m_gather_rows(sr.detach().float(), mesh, 4 * 113, 4 * 29).cpu()  # 113 rows padded to 116
+            out["M3 (1, 4)"] = dict(loss=loss_all.item(), grad_rel_fair=m_rel(grad.cpu(), refs["M3"]["fair"]["grad"]),
+                                    grad_rel_unsharded=m_rel(grad.cpu(), refs["M3"]["unsharded"]["grad"]),
+                                    **m_errors(frame, refs["M3"]))
+            del model
+            spatial = {"mesh": mesh, "axis": "spatial", "halo": M_HALO, "scale": 4}
+            losses, norms, _ = m_pretrain(device, 2, 0, mesh, spatial=spatial, batch=eu)
+            out["M3 step (1, 4)"] = dict(losses=losses, norms=norms)
+            mesh22 = create_mesh(axes=("data", "spatial"), last_axis_size=2)
+            spatial = {"mesh": mesh22, "axis": "spatial", "halo": M_HALO, "scale": 4}
+            losses, norms, state = m_pretrain(device, 2, 3, mesh22, spatial=spatial, batch=eu)
+            out["M3 step (2, 2) ZeRO-3"] = dict(losses=losses, norms=norms, sharded=sum(
+                map(state.partition.is_sharded, (n for n, _ in state.partition.named))))
+            del state
+            spatial = {"mesh": mesh22, "axis": "spatial", "halo": M_HALO, "scale": 4}
+            trace, state = m_gan(device, M_GAN_STEPS, 0, mesh22, spatial=spatial)
+            out["M3 GAN (2, 2)"] = dict(trace=trace)
+            del state
+        # M4: RCAN at its published widths, the exact pool against the local-pool control
+        with part("M4"):
+            axis = axis_info(mesh, "spatial")
+            x = refs["M4"]["ca_x"].to(device)
+            hl = x.shape[2] // M_RANKS
+            local = H._halo_pad_reflect(x[:, :, rank * hl:(rank + 1) * hl], 4, mesh, "spatial")
+            plain = CALayer(64, 16).to(device)
+            plain.load_state_dict(refs["M4"]["ca"])
+            exact = CALayer(64, 16, spatial_axis=axis, spatial_halo=4).to(device)
+            exact.load_state_dict(refs["M4"]["ca"])
+            with torch.no_grad():
+                ca = {tag: m_gather_rows(m(local)[:, :, 4:-4], mesh, x.shape[2], hl).cpu()
+                      for tag, m in (("exact", exact), ("local", plain))}
+            rcan = create_generator("rcan", dtype=torch.bfloat16, device=device, in_channels=3, out_channels=1,
+                                    **FAMILIES["rcan"])
+            rcan.load_state_dict(refs["M4"]["rcan"])
+            frames = {}
+            rb = m_batch(M_RCAN_N, 113, 113, seed=6)
+            args = [rb[k].to(device=device, dtype=torch.bfloat16) for k in ("lr", "elevation", "mask")]
+            for tag, model in (("exact", rcan), ("local", _LocalPoolRCAN(rcan))):
+                fwd = H.spatial_sharded_model_forward(model, "rcan", mesh, axis="spatial", halo=M_HALO, scale=4)
+                with torch.inference_mode():
+                    frames[tag] = m_gather_rows(fwd(*args)[0].float(), mesh, 4 * 113, 4 * 29).cpu()
+            out["M4"] = dict(pool_exact=(ca["exact"] - refs["M4"]["ca_want"]).abs().max().item(),
+                             pool_local=(ca["local"] - refs["M4"]["ca_want"]).abs().max().item(),
+                             exact=m_errors(frames["exact"], refs["M4"]), local=m_errors(frames["local"], refs["M4"]))
+        # M5: cli.inference with spatial_shard over the ranks; rank 0 writes
+        with part("M5"):
+            inference_main(refs["M5"]["overrides"] + ["inference.spatial_shard=true",
+                                                      f"inference.spatial_halo={M_INFER_HALO}",
+                                                      f"inference.inference_out_path={root_p / 'sharded'}",
+                                                      f"inference.extent_out_path_sr_nc={root_p / 'sharded_nc'}"],
+                           device=device)
+        # M6: cli.train over the ranks at ZeRO-2, then with the spatial plugin
+        with part("M6"):
+            base = refs["M6"]["overrides"]
+            train_main(base + ["trainer.zero_stage=2", f"training.output_dir={root_p / 'zero2'}"], device=device)
+            train_main(base + ["plugins=spatial_shard", "trainer.spatial_shard_halo=4",
+                               f"training.output_dir={root_p / 'spatial'}"], device=device)
+    out["shapes"] = {k: sorted([list(n), list(w) if isinstance(w, tuple) else w, str(dt)] for n, w, dt in v)
+                     for k, v in shapes.items()}
+    (root_p / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+class _LocalPoolRCAN(torch.nn.Module):
+    """M4's control: RCAN whose channel attention pools each shard alone
+    (no ``spatial_axis`` for the sharded forward to set)."""
+
+    def __init__(self, rcan):
+        super().__init__()
+        self.rcan = rcan
+
+    def forward(self, *args):
+        return self.rcan(*args)
+
+
+def phase_multi(device, root: Path, card: str, trainer: dict) -> dict:
+    """M: the port's multi-rank code, 4 gloo ranks sharing the one card (NCCL
+    refuses two ranks on one card): the references from one rank here, the
+    ranks' results held against them, and A, B1, B2 and C at every shape the
+    ranks launched them against their plain versions. ``trainer`` is phase
+    13's result: its set, best checkpoint and logged single-rank run. Times
+    from ranks that share a card are not multi-GPU figures."""
+    from climsr_tpu_torch.consts import datasets_and_preprocessing as D
+    from climsr_tpu_torch.data.tables import Table, write_feather
+    from climsr_tpu_torch.interop.params import load_generator_checkpoint
+    from climsr_tpu_torch.io.geotiff import read_geotiff
+    from climsr_tpu_torch.models import create_generator
+    from climsr_tpu_torch.models.rcan import CALayer
+    from climsr_tpu_torch.parallel.launch import spawn
+    from climsr_tpu_torch.cli.inference import main as inference_main
+
+    t0 = time.perf_counter()
+    m_root = root / "m"
+    m_root.mkdir()
+    refs = {}
+    # M1, M2: one rank on the global batch of 192
+    losses, norms, state = m_pretrain(device, M_STEPS)
+    refs["M1"] = dict(losses=losses, norms=norms, params=m_flat(state.model.named_parameters()).cpu())
+    del state
+    trace, state = m_gan(device, M_GAN_STEPS)
+    refs["M2"] = dict(trace=trace, running_var=m_flat(
+        (n, b) for n, b in state.d_model.named_buffers() if "running_var" in n).cpu(),
+        g=m_flat(state.g_model.named_parameters()).cpu(), d=m_flat(state.d_model.named_parameters()).cpu())
+    del state
+    # M1's model at its start (m_pretrain's seed): how far the steps moved it
+    start = m_flat(create_generator("esrgan", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                                    device=device, train=True, in_channels=3, out_channels=1, nf=NF, nb=NB,
+                                    gc=GC).named_parameters())
+    m1_moved = m_rel(refs["M1"]["params"], start)
+    # M2's control: one rank's GAN steps on rank 0's slice of the batch alone
+    _, state = m_gan(device, M_GAN_STEPS, n=TRAIN_N // M_RANKS)
+    control = {k: m_rel(m_flat(m.named_parameters()), refs["M2"][k]) for k, m in (("g", state.g_model),
+                                                                                  ("d", state.d_model))}
+    del state
+    trace, state = m_gan(device, M_GAN_STEPS, edge_fair_halo=M_HALO)
+    refs["M3 GAN"] = dict(trace=trace)
+    del state
+    # M3, M4: the unsharded and edge-fair references
+    esr = create_generator("esrgan", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0), device=device,
+                           train=True, in_channels=3, out_channels=1, nf=NF, nb=NB, gc=GC)
+    refs["M3"] = m_spatial_refs(device, esr, m_batch(M_EU_N, 113, 113, seed=4), M_HALO)
+    del esr
+    ca = CALayer(64, 16)
+    gen = torch.Generator().manual_seed(7)
+    for conv in (ca.conv_du[0], ca.conv_du[2]):
+        torch.nn.init.normal_(conv.weight, 0, 0.2, generator=gen)
+    x = torch.randn(2, 64, 128, 113, generator=gen)
+    x[:, :, :64] += 3.0  # rows whose shards' local means differ
+    rcan = create_generator("rcan", dtype=torch.bfloat16, device=device, in_channels=3, out_channels=1,
+                            generator=torch.Generator().manual_seed(8), **FAMILIES["rcan"])
+    with torch.no_grad():
+        ca_want = ca.to(device)(x.to(device)).cpu()
+    refs["M4"] = dict(ca=ca.state_dict(), ca_x=x, ca_want=ca_want, rcan=rcan.state_dict())
+    rb = m_batch(M_RCAN_N, 113, 113, seed=6)
+    with torch.inference_mode():
+        import torch.nn.functional as F
+
+        args = [rb[k].to(device=device, dtype=torch.bfloat16) for k in ("lr", "elevation", "mask")]
+        unsharded = rcan(*args).float().cpu()
+        fair_in = [F.pad(F.pad(a, (0, 0, 0, 3 * s), mode="reflect"), (0, 0, M_HALO * s, M_HALO * s), mode="reflect")
+                   for a, s in zip(args, (1, 4, 4))]
+        fair = rcan(*fair_in).float()[:, :, 4 * M_HALO: 4 * (M_HALO + 113)].cpu()
+    refs["M4"].update(unsharded=dict(sr=unsharded), fair=dict(sr=fair))
+    del rcan
+    # M5: a whole-globe world of M_MONTHS months, the lookups, and the single-rank tiled run
+    make_globe(m_root, M_MONTHS, 360, 720)
+    write_feather(Table.from_rows([{"dataset": "cru-ts", "variable": "tmp", "filename": "x", "min": -20.0,
+                                    "max": 40.0, "global_min": -20.0, "global_max": 40.0}]), m_root / "minmax.feather")
+    overrides = [f"inference.pretrained_model={trainer['best_ckpt']}", "inference.generator_type=esrgan",
+                 f"inference.min_max_lookup={m_root / 'minmax.feather'}", "inference.cruts_variable=tmp",
+                 "inference.use_netcdf_datasets=true", f"inference.ds_path={m_root / 'cru_ts4.05.1901.2020.tmp.dat.nc'}",
+                 f"inference.elevation_file={m_root / 'elevation.tif'}",
+                 f"inference.land_mask_file={m_root / 'land_mask.tif'}", "generator.in_channels=3",
+                 "generator.out_channels=1", f"generator.nf={NF}", f"generator.nb={NB}", f"generator.gc={GC}"]
+    refs["M5"] = dict(overrides=overrides)
+    # the default tiles (128 px, 8 px of overlap), tiles with 32 px of overlap, and the whole frame (1024 > 720)
+    for tag, extra in (("tiled", []), ("tiled32", ["inference.tile_size=128", "inference.tile_overlap=32"]),
+                       ("whole", ["inference.tile_size=1024"])):
+        inference_main(overrides + extra + [f"inference.inference_out_path={m_root / tag}",
+                                            f"inference.extent_out_path_sr_nc={m_root / (tag + '_nc')}"],
+                       device=device)
+    # M6: phase 13's set with its index on disk, for the ranks' datamodules
+    feather_dir = root / "ds" / D.preprocessing_output_path / D.feather_path
+    for rel, table in trainer["tables"].items():
+        (feather_dir / rel).parent.mkdir(parents=True, exist_ok=True)
+        write_feather(table, feather_dir / rel)
+    refs["M6"] = dict(overrides=["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+                                 f"trainer.max_epochs={TRAINER_EPOCHS}", f"trainer.num_devices={M_RANKS}",
+                                 "trainer.log_every_n_steps=1", "logger=csv", "print_config=false"])
+    torch.save(refs, m_root / "refs.pt")
+    ref_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory for the ranks
+    t = time.perf_counter()
+    spawn("chip_smoke:phase_multi_rank", M_RANKS, {"root": str(m_root)},
+          env={"PYTHONPATH": str(Path(__file__).resolve().parent)}, timeout=900)
+    ranks_s = time.perf_counter() - t
+    res = [json.loads((m_root / f"rank{r}.json").read_text()) for r in range(M_RANKS)]
+    r0 = res[0]
+    for label, s in r0["seconds"].items():
+        print(f"# M {label}: {s:.3f} s on rank 0; launches summed over the ranks "
+              + json.dumps({k: sum(r["launches"][label][k] for r in res) for k in r0["launches"][label]}))
+
+    # M1
+    failures = []  # every part is read and printed; the phase fails at its end if any part failed
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    for stage in (0, 1, 2, 3):
+        got = r0[f"M1 stage {stage}"]
+        traj = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], refs["M1"]["losses"]))
+        norm = max(abs(a - b) / abs(b) for a, b in zip(got["norms"], refs["M1"]["norms"]))
+        same = all(r[f"M1 stage {stage}"]["losses"] == got["losses"] for r in res)
+        print(f"# M1 ZeRO-{stage}, 4 x {TRAIN_N // M_RANKS}: losses {['%.6f' % v for v in got['losses']]} against one "
+              f"rank's {['%.6f' % v for v in refs['M1']['losses']]}: trajectory {traj:.2e}, grad norms {norm:.2e} "
+              f"(tol {M_LOSS_TOL:g}, {M_NORM_TOL:g}); parameters rel-L2 {got['params_rel']:.2e} (tol {M_PARAM_TOL:g}, "
+              f"and {M_MOVE_SHARE:g} of the steps' move {m1_moved:.2e}); {got['sharded']} tensors sharded; full "
+              f"gradients kept {got['full_grads']}")
+        check(traj <= M_LOSS_TOL and norm <= M_NORM_TOL and got["params_rel"] <= M_PARAM_TOL
+              and got["params_rel"] <= M_MOVE_SHARE * m1_moved and same, f"M1 stage {stage} disagrees with one rank")
+        check((stage >= 1) == (got["sharded"] > 0) and not (stage == 3 and any(r["M1 stage 3"]["full_grads"]
+                                                                               for r in res)),
+              f"M1 stage {stage}: sharding {got['sharded']}, full gradients {got['full_grads']}")
+    print(f"# M collectives, gloo, 4 ranks sharing the card (overhead figures, not multi-GPU ones; {card}): ZeRO-3 "
+          f"all-gather of the {r0['M1 stage 3']['sharded']} sharded tensors ({r0['zero_sharded_mb']:.1f} MB f32) "
+          f"{r0['zero_gather_ms']:.3f} ms, reduce-scatter {r0['zero_scatter_ms']:.3f} ms; halo exchange of M3's "
+          f"inputs (halo {M_HALO} LR rows, 4 x {M_HALO} HR) {r0['halo_inputs_ms']:.3f} ms, of a {M_EU_N} x {NF} x 29 "
+          f"x 113 bf16 feature map {r0['halo_feature_ms']:.3f} ms (rank 0's medians of 5)")
+    # M2
+    for stage in (0, 2):
+        got = r0[f"M2 stage {stage}"]
+        worst = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["trace"], refs["M2"]["trace"])
+                    for k in ("train/loss_G", "train/loss_D"))
+        print(f"# M2 GAN ZeRO-{stage}: loss_G {['%.6f' % m['train/loss_G'] for m in got['trace']]}, loss_D "
+              f"{['%.6f' % m['train/loss_D'] for m in got['trace']]}; worst relative difference to one rank "
+              f"{worst:.2e}, D's running variances rel-L2 {got['running_var_rel']:.2e} (tol {M_GAN_TOL:g}); G's and "
+              f"D's parameters rel-L2 {got['g_rel']:.2e}, {got['d_rel']:.2e} (tol {M_PARAM_TOL:g}, and "
+              f"{M_CONTROL_SHARE:g} of one rank's on its slice alone, {control['g']:.2e}, {control['d']:.2e})")
+        check(worst <= M_GAN_TOL and got["running_var_rel"] <= M_GAN_TOL
+              and all(got[f"{k}_rel"] <= min(M_PARAM_TOL, M_CONTROL_SHARE * control[k]) for k in ("g", "d")),
+              f"M2 stage {stage} disagrees with one rank")
+    # M3
+    got = r0["M3 (1, 4)"]
+    loss_err = abs(got["loss"] - refs["M3"]["fair"]["loss"]) / refs["M3"]["fair"]["loss"]
+    print(f"# M3 spatial (1, 4), halo {M_HALO}, {M_EU_N} x 113 x 113 LR: loss {got['loss']:.6f} against the "
+          f"edge-fair {refs['M3']['fair']['loss']:.6f} ({loss_err:.2e}) and unsharded "
+          f"{refs['M3']['unsharded']['loss']:.6f}; output relative to its max: seam max {got['seam_max']:.3e} rmse "
+          f"{got['seam_rmse']:.3e} (interior, against the edge-fair baseline), frame edge max {got['edge_max']:.3e} "
+          f"rmse {got['edge_rmse']:.3e} (against the unsharded model); gradient rel-L2 {got['grad_rel_fair']:.3e} "
+          f"edge-fair, {got['grad_rel_unsharded']:.3e} unsharded")
+    for tag in ("M3 step (1, 4)", "M3 step (2, 2) ZeRO-3"):
+        print(f"# {tag}: losses {['%.6f' % v for v in r0[tag]['losses']]}, grad norms "
+              f"{['%.4f' % v for v in r0[tag]['norms']]}")
+    steps_ok = all(np.isfinite(r0[t]["losses"] + r0[t]["norms"]).all() for t in ("M3 step (1, 4)",
+                                                                                  "M3 step (2, 2) ZeRO-3"))
+    first = [r0[t]["losses"][0] for t in ("M3 step (1, 4)", "M3 step (2, 2) ZeRO-3")]
+    check(loss_err <= STEP_LOSS_TOL and got["seam_max"] <= GENERATOR_TOL[torch.bfloat16]
+          and got["grad_rel_fair"] <= GRAD_TOL and steps_ok
+          and max(abs(v - refs["M3"]["fair"]["loss"]) / refs["M3"]["fair"]["loss"] for v in first) <= STEP_LOSS_TOL
+          and r0["M3 step (2, 2) ZeRO-3"]["sharded"] > 0,
+          "M3: the spatial step disagrees with the edge-fair unsharded step")
+    got = r0["M3 GAN (2, 2)"]
+    worst = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["trace"], refs["M3 GAN"]["trace"])
+                for k in ("train/loss_G", "train/loss_D"))
+    print(f"# M3 spatial GAN (2, 2), halo {M_HALO}, batch {TRAIN_N}: loss_G "
+          f"{['%.6f' % m['train/loss_G'] for m in got['trace']]}, loss_D "
+          f"{['%.6f' % m['train/loss_D'] for m in got['trace']]}; worst relative difference to one rank's "
+          f"edge-fair step {worst:.2e} (tol {GAN_LOSS_TOL:g})")
+    check(worst <= GAN_LOSS_TOL, "M3: the spatial GAN step disagrees with the edge-fair unsharded step")
+    # M4
+    got = r0["M4"]
+    print(f"# M4 RCAN CALayer at 64 channels, f32, 128 rows over 4 ranks: exact pool {got['pool_exact']:.3e} "
+          f"(tol {M_POOL_TOL:g}), local-pool control {got['pool_local']:.3e}; RCAN 10 x 20 x 64 bf16 sharded, "
+          f"halo {M_HALO}: exact pool seam max {got['exact']['seam_max']:.3e} rmse {got['exact']['seam_rmse']:.3e}, "
+          f"local pool seam max {got['local']['seam_max']:.3e} rmse {got['local']['seam_rmse']:.3e}; frame edge max "
+          f"{got['exact']['edge_max']:.3e}")
+    check(got["pool_exact"] <= M_POOL_TOL and got["pool_local"] > 100 * max(got["pool_exact"], 1e-7)
+          and got["local"]["seam_rmse"] > got["exact"]["seam_rmse"],
+          "M4: the exact channel-attention pool is not exact, or the control does not differ")
+    # M5: rank 0's GeoTIFFs against one rank's whole-frame run (the same function but the seams, each rank
+    # seeing M_INFER_HALO rows of its neighbours). The default tiled run is no reference for them: its own tiles
+    # see 8 px of context against a ~170-px receptive field, and it reflect-pads the frame's right edge to the
+    # tile grid where the whole frame zero-pads (tests/test_torch_inference.py holds the tiled sweep against the
+    # JAX package's, and its gap to the whole frame against the JAX package's gap). Its gap to the whole frame
+    # is bounded here, in the interior and at the frame's left and right edge columns, with the run at 32 px of
+    # overlap as a second witness: more context, a smaller interior gap, the same edge columns.
+    mask = read_geotiff(m_root / "land_mask.tif")[0]
+    land = np.isfinite(mask)
+    e = 4 * M_EDGE_ROWS
+
+    def tifs(tag: str) -> list:
+        paths = sorted((m_root / tag / "tmp").glob("*.tif"))
+        if len(paths) != M_MONTHS:
+            raise AssertionError(f"M5: {tag} wrote {[p.name for p in paths]}")
+        return [(p.name, read_geotiff(p)[0]) for p in paths]
+
+    whole = tifs("whole")
+
+    def gap(tag: str) -> dict:
+        """Worst over the months of |run - whole frame| / the frame's half range, away from its top and bottom
+        edge rows: max and mean over the interior columns, max over the left and right edge columns."""
+        worst = dict(max=0.0, mean=0.0, edge_cols=0.0)
+        for (name, a), (name_b, b) in zip(tifs(tag), whole):
+            if name != name_b:
+                raise AssertionError(f"M5: {tag} wrote {name} where one rank's whole frame wrote {name_b}")
+            if not (np.isfinite(a[land]).all() and np.isnan(a[~land]).all()):
+                raise AssertionError(f"M5: the {tag} GeoTIFF is not finite on land and NaN on the sea")
+            half = (float(np.nanmax(b)) - float(np.nanmin(b))) / 2
+            d = np.abs(a - b)[e:-e] / half
+            worst["max"] = max(worst["max"], float(np.nanmax(d[:, e:-e])))
+            worst["mean"] = max(worst["mean"], float(np.nanmean(d[:, e:-e])))
+            worst["edge_cols"] = max(worst["edge_cols"], float(np.nanmax(np.concatenate([d[:, :e], d[:, -e:]], 1))))
+        return worst
+
+    gaps = {tag: gap(tag) for tag in ("sharded", "tiled", "tiled32")}
+    nc = list((m_root / "sharded_nc").glob("*.nc"))
+    g = gaps["sharded"]
+    print(f"# M5 cli.inference spatial_shard over {M_RANKS} ranks, {M_MONTHS} whole-globe months, halo "
+          f"{M_INFER_HALO}: finite on land, NaN on the sea; of the frame's half range, away from its top and bottom "
+          f"{M_EDGE_ROWS} LR rows, against one rank's whole frame: max {max(g['max'], g['edge_cols']):.3e} mean "
+          f"{g['mean']:.3e} (tol {GENERATOR_TOL[torch.bfloat16] + 1e-3:g}: bf16 plus the CPU test's seam 1e-3); "
+          f"NetCDF {[p.name for p in nc]}")
+    for tag, overlap in (("tiled", 8), ("tiled32", 32)):
+        g = gaps[tag]
+        print(f"# M5 one rank's tiled run (128-px tiles, {overlap} px of overlap) against its whole frame, of the "
+              f"half range: interior max {g['max']:.3e} mean {g['mean']:.3e}, the {M_EDGE_ROWS} LR columns at the "
+              f"frame's left and right edges max {g['edge_cols']:.3e} (tol: interior max {M5_TILED_MAX:g}, mean "
+              f"{M5_TILED_MEAN:g}, edges {M5_TILED_EDGE:g}; 32 px below 8 px in the interior)")
+    check(max(gaps["sharded"]["max"], gaps["sharded"]["edge_cols"]) <= GENERATOR_TOL[torch.bfloat16] + 1e-3
+          and len(nc) == 1,
+          "M5: the sharded inference disagrees with the single-rank run")
+    tiled, tiled32 = gaps["tiled"], gaps["tiled32"]
+    check(all(g["max"] <= M5_TILED_MAX and g["mean"] <= M5_TILED_MEAN and g["edge_cols"] <= M5_TILED_EDGE
+              for g in (tiled, tiled32)) and tiled32["mean"] < tiled["mean"] and tiled32["max"] < tiled["max"],
+          "M5: the tiled run's gap to the whole frame is not the tiles' seams")
+    # M6: the runs against phase 13's single-rank run; the best checkpoints load in one rank
+    from climsr_tpu_torch.training.checkpoint import CheckpointManager
+
+    for tag, tol in (("zero2", M6_TOL), ("spatial", M6_SPATIAL_TOL)):
+        (run_dir,) = (m_root / tag / "outputs" / "runs" / "esrgan").iterdir()
+        rows = metric_rows(run_dir / "metrics.csv")
+        mgr = CheckpointManager(run_dir / "checkpoints", save_top_k=-1)
+        fresh = create_generator("esrgan", dtype=torch.bfloat16, device=device, train=True, in_channels=3,
+                                 out_channels=1, nf=NF, nb=NB, gc=GC)
+        fresh.load_state_dict(load_generator_checkpoint(mgr.path(mgr.best_step)), strict=True)
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        rmse = [r["val/rmse"] for r in rows if "val/rmse" in r]
+        pairs = list(zip(losses, trainer["train_loss"])) + list(zip(rmse, trainer["val_rmse"]))
+        err = max(abs(a - b) / abs(b) for a, b in pairs)
+        print(f"# M6 cli.train {tag} over {M_RANKS} ranks: train/loss {['%.6f' % v for v in losses]}, val/rmse "
+              f"{['%.6f' % v for v in rmse]} against phase 13's one rank {['%.6f' % v for v in trainer['train_loss']]}, "
+              f"{['%.6f' % v for v in trainer['val_rmse']]}: {err:.2e} relative (tol {tol:g}); best checkpoint step "
+              f"{mgr.best_step} loads in one rank with strict=True")
+        check(len(losses) == len(trainer["train_loss"]) and len(rmse) == len(trainer["val_rmse"]) and err <= tol
+              and np.isfinite(losses + rmse).all(), f"M6 {tag}: the run over the ranks disagrees with phase 13's run")
+    # A, B1, B2 and C at every shape the ranks launched them
+    merged = {}
+    for r in res:
+        for k, v in r["shapes"].items():
+            merged.setdefault(k, set()).update((tuple(n), tuple(w) if isinstance(w, list) else w,
+                                                getattr(torch, dt.split(".")[1])) for n, w, dt in v)
+    launches = {label: {k: sum(r["launches"][label][k] for r in res) for k in r0["launches"][label]}
+                for label in r0["launches"]}
+    needed = dict(M1=("B1", "B2", "C"), M2=("B1", "B2", "C"), M3=("B1", "B2", "C"), M5=("A",),
+                  M6=("A", "B1", "B2", "C"))
+    missing = [(label, k) for label, ks in needed.items() for k in ks if launches[label][k] <= 0]
+    if missing:
+        raise AssertionError(f"M: kernels of a part's path were not launched: {missing}")
+    x_check_shapes(device, merged, label="M")
+    if failures:
+        raise AssertionError("M: " + "; ".join(failures))
+    print(f"# M: references {ref_s:.1f} s, ranks {ranks_s:.1f} s ({card}; 4 ranks share the card: no time here "
+          f"is a multi-GPU figure)")
+    return dict(launches=launches)
+
+
 def du(path: Path) -> int:
     return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
 
@@ -2681,6 +3373,10 @@ def main() -> int:
             paths["X"] = phase_pipeline(device, root, card)["launches"]
         seconds["X"] = time.perf_counter() - t
         x_check_shapes(device, x_shapes)
+        # M. the multi-rank code: 4 gloo ranks sharing the card
+        t = time.perf_counter()
+        paths["M"] = phase_multi(device, root, card, trainer)["launches"]
+        seconds["M"] = time.perf_counter() - t
         print(f"# launches on each path of this slice, through the kernels (plain runs and checks not "
               f"counted): {json.dumps(paths)}")
         print(f"# seconds by phase of this slice: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))

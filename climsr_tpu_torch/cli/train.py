@@ -18,6 +18,14 @@ composed config is the JAX package's. ``training.lr_find_only=true`` runs the
 LR range test instead of the fit (``training/lr_finder.py``), and an
 ``hparams_search=<preset>`` runs the sweep (``training/hparams_search.py``),
 one ``run`` per trial (:func:`run_hparams_search`), as the JAX CLI does.
+
+Several ranks: called inside an initialized ``torch.distributed`` group
+(``torchrun``, or a caller's own group) the run takes that group; otherwise
+``trainer.num_devices=N`` (N > 1) makes :func:`main` start N ranks itself,
+NCCL with one card per rank on ``cuda`` (it raises where there are fewer
+cards) and gloo on the CPU. Every rank resolves rank 0's run directory
+(``broadcast_string``); ``plugins=spatial_shard`` and ``trainer.zero_stage``
+/ ``shard_optimizer_state`` reach the Trainer as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import sys
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from climsr_tpu_torch.config.compose import ConfigError, compose, default_config_dir
 from climsr_tpu_torch.config.schemas import (
@@ -41,6 +51,8 @@ from climsr_tpu_torch.config.schemas import (
     infer_generator_config,
 )
 from climsr_tpu_torch.device import DeviceLike, resolve_device
+from climsr_tpu_torch.parallel.launch import init_from_env, spawn
+from climsr_tpu_torch.parallel.mesh import broadcast_string, world
 
 logger = logging.getLogger(__name__)
 
@@ -118,9 +130,10 @@ def run(cfg: Dict[str, Any], report_cb=None, datamodule=None, device: DeviceLike
     if datamodule is None:
         datamodule = SuperResolutionDataModule(data_cfg)
 
+    # every rank writes into (and reads) rank 0's timestamped directory
     run_dir = (
         Path(training_cfg.output_dir) / "outputs" / "runs" / training_cfg.generator_type
-        / time.strftime("%Y-%m-%d_%H-%M-%S")
+        / broadcast_string(time.strftime("%Y-%m-%d_%H-%M-%S"))
     )
     callback_names = cfg.get("callbacks")
     if isinstance(callback_names, str):
@@ -210,11 +223,24 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> Optiona
     while overrides and overrides[0].startswith("--device="):
         device = overrides.pop(0).split("=", 1)[1]
     dev = resolve_device(device)
+    init_from_env(dev)
+    if dev.type == "cuda" and world()[1] > 1:
+        dev = torch.device("cuda", torch.cuda.current_device())
     cfg = compose(default_config_dir(), "config", overrides)
+    n = (cfg.get("trainer") or {}).get("num_devices")
+    if n is not None and int(n) > 1 and world()[1] == 1:
+        spawn("climsr_tpu_torch.cli.train:main_rank", int(n), {"argv": overrides, "device": dev.type},
+              backend="nccl" if dev.type == "cuda" else "gloo")
+        return None
     search_cfg = cfg.get("hparams_search")
     if isinstance(search_cfg, dict) and search_cfg.get("search_space"):
         return run_hparams_search(cfg, overrides, dev)
     return run(cfg, device=dev)
+
+
+def main_rank(argv: List[str], device: str) -> None:
+    """One rank of a run that :func:`main` started (on its card under NCCL)."""
+    main(argv, device=device)
 
 
 if __name__ == "__main__":

@@ -173,10 +173,12 @@ class SchedulerConfig:
 class TrainerConfig:
     """The JAX package's trainer knobs, with its names and defaults.
 
-    The port's Trainer runs on one device: ``num_devices > 1``,
-    ``zero_stage``/``shard_optimizer_state`` and ``spatial_shard_size > 1``
-    raise, naming their ``ROADMAP.md`` item (queue 1, item 8).
-    ``remat`` and ``mesh_axes`` are taken for parity and change nothing.
+    The devices are the ranks of the ``torch.distributed`` world, one per
+    rank: ``num_devices`` must be its size (``cli.train`` starts that many
+    ranks where no group is initialized), ``mesh_axes``, ``zero_stage`` /
+    ``shard_optimizer_state`` and ``spatial_shard_size`` / ``spatial_shard_halo``
+    shape the Trainer's mesh as in the JAX package. ``remat`` is taken for
+    parity and changes nothing.
     """
 
     max_epochs: int = 1
@@ -193,7 +195,7 @@ class TrainerConfig:
     deterministic: bool = False
     fast_dev_run: bool = False
 
-    # devices and sharding (one device only in the port; see the docstring)
+    # devices and sharding: the ranks of the torch.distributed world (see the docstring)
     num_devices: Optional[int] = None  # None = all visible
     mesh_axes: Tuple[str, ...] = ("data",)
     shard_optimizer_state: bool = False

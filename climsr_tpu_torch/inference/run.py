@@ -39,6 +39,8 @@ from climsr_tpu_torch.io.geotiff import GeoProfile, read_geotiff, write_geotiff
 from climsr_tpu_torch.io.netcdf import stack_monthly_rasters, write_climate_series
 from climsr_tpu_torch.models import FUSION_GENERATORS, PRE_UPSCALED_GENERATORS, create_generator
 from climsr_tpu_torch.ops.pack12 import unpack12
+from climsr_tpu_torch.parallel.halo import spatial_sharded_apply_multi
+from climsr_tpu_torch.parallel.mesh import all_gather_dim, axis_info, create_mesh, world
 
 B = consts.batch_items
 D = consts.datasets_and_preprocessing
@@ -107,7 +109,10 @@ def inference_on_full_images(
     ``"pack12"`` (12-bit fixed point, 1.5 B/px, worst-case abs error 3.7e-4 on
     the normalized output; used only under a ``MinMaxScaler``, whose output is
     in [-1, 1]) or ``"f16"`` (2 B/px). ``model`` must already be on ``device``.
-    ``spatial_halo`` is kept for signature parity with the JAX package.
+    ``spatial_shard`` with several ranks whose count divides the frame
+    height runs :func:`_spatial_sharded_sr` with halo ``spatial_halo``; rank
+    0 writes and returns the paths, the other ranks return ``[]``. On one
+    rank it warns and takes the tiled path, as the JAX package.
     """
     if readback not in READBACKS:
         raise ValueError(f"readback must be one of {READBACKS}, got {readback!r}")
@@ -137,12 +142,16 @@ def inference_on_full_images(
 
     extras = (ds.elevation_data, ds.mask_hr) if generator_type in FUSION_GENERATORS else None
 
+    # Multi-rank whole-globe mode: every rank SRs its H-slice of every frame
+    # with one halo exchange (parallel/halo.py); rank 0 writes the outputs
+    rank, n_dev = world()
     if spatial_shard:
-        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-        if n_dev > 1:
-            raise NotImplementedError(
-                "spatial_shard over several GPUs is a later item (ROADMAP.md, queue 1: multi-GPU)"
-            )
+        if n_dev > 1 and frames.shape[1] % n_dev == 0:
+            sr_frames = _spatial_sharded_sr(model, generator_type, frames, extras, spatial_halo, scaling_factor,
+                                            batch_size, dev)
+            if rank != 0:
+                return written
+            return _write_outputs(sr_frames, metas, scaler, mask_np, mask_profile, out_dir, written)
         logger.warning(
             "inference.spatial_shard requested but %d device(s) / H=%d not shardable; "
             "falling back to the tiled path", n_dev, frames.shape[1],
@@ -188,6 +197,37 @@ def inference_on_full_images(
         )
     sr_frames = whole_frame_sr(gen_fn, frames, extras=extras, batch_size=batch_size, device=dev)
     return _write_outputs(sr_frames, metas, scaler, mask_np, mask_profile, out_dir, written)
+
+
+def _spatial_sharded_sr(model: nn.Module, generator_type: str, frames: np.ndarray, extras, spatial_halo: int,
+                        scaling_factor: int, batch_size: int, dev: torch.device) -> np.ndarray:
+    """Whole frames SR'd jointly by the ranks of the world
+    (``climsr_tpu/inference/run.py:130-170``): rank r runs
+    ``spatial_sharded_apply_multi`` over rows [r*Hl, (r+1)*Hl) of every frame
+    and of the HR extras, the halo capped at ``Hl - 1`` (the reflection at
+    the frame edges reads the shard's own rows); the frames' outputs are
+    all-gathered. RCAN runs as a clone with the exact channel-attention pool."""
+    mesh = create_mesh()
+    _, rank, n = axis_info(mesh, "data")
+    hl = frames.shape[1] // n
+    halo = min(spatial_halo, hl - 1)
+    out_scale = 1 if generator_type in PRE_UPSCALED_GENERATORS else scaling_factor
+    scales = (1, out_scale, out_scale) if extras is not None else (1,)
+    mdl = model.clone(spatial_axis=axis_info(mesh, "data"), spatial_halo=halo) \
+        if hasattr(model, "spatial_axis") else model
+    dtype = next(model.parameters()).dtype
+    sharded = spatial_sharded_apply_multi(lambda *xs: mdl(*xs), mesh, halo=halo, scale=out_scale,
+                                          input_scales=scales)
+
+    def gen_fn(*xs: torch.Tensor) -> torch.Tensor:  # NHWC local slices -> NHWC whole frames
+        out = sharded(*[x.permute(0, 3, 1, 2).to(dtype) for x in xs])
+        return all_gather_dim(out.contiguous(), 2, axis_info(mesh, "data")[0], n).permute(0, 2, 3, 1)
+
+    local = frames[:, rank * hl:(rank + 1) * hl]
+    local_extras = None if extras is None else tuple(
+        np.asarray(e)[rank * hl * out_scale:(rank + 1) * hl * out_scale] for e in extras)
+    logger.info("spatial-sharded whole-frame SR over %d ranks (halo=%d LR rows)", n, halo)
+    return whole_frame_sr(gen_fn, local, extras=local_extras, batch_size=batch_size, compute_dtype=dtype, device=dev)
 
 
 def _denormalize(scaler, arr: np.ndarray, vmin: float, vmax: float) -> np.ndarray:

@@ -13,22 +13,27 @@ import torch
 import torch.nn.functional as F
 
 
-def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, mean=torch.mean) -> torch.Tensor:
     """torch ``BCEWithLogitsLoss`` with mean reduction, written out as the JAX one is."""
-    return -torch.mean(labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
+    return -mean(labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
 
 
-def relativistic_g_loss(score_real: torch.Tensor, score_fake: torch.Tensor) -> torch.Tensor:
-    d_rf = score_real - score_fake.mean()
-    d_fr = score_fake - score_real.mean()
-    adv_rf = bce_with_logits(d_rf, torch.zeros_like(score_real))
-    adv_fr = bce_with_logits(d_fr, torch.ones_like(score_real))
+def relativistic_g_loss(score_real: torch.Tensor, score_fake: torch.Tensor, mean=torch.mean,
+                        center=torch.mean) -> torch.Tensor:
+    """``center`` takes the batch means the scores are centred on and ``mean``
+    the losses' means; across ranks, the global mean and the rank's share of
+    it (``training/tasks/gan.py``)."""
+    d_rf = score_real - center(score_fake)
+    d_fr = score_fake - center(score_real)
+    adv_rf = bce_with_logits(d_rf, torch.zeros_like(score_real), mean)
+    adv_fr = bce_with_logits(d_fr, torch.ones_like(score_real), mean)
     return (adv_fr + adv_rf) / 2.0
 
 
-def relativistic_d_loss(score_real: torch.Tensor, score_fake: torch.Tensor) -> torch.Tensor:
-    d_rf = score_real - score_fake.mean()
-    d_fr = score_fake - score_real.mean()
-    adv_rf = bce_with_logits(d_rf, torch.ones_like(score_real))
-    adv_fr = bce_with_logits(d_fr, torch.zeros_like(score_fake))
+def relativistic_d_loss(score_real: torch.Tensor, score_fake: torch.Tensor, mean=torch.mean,
+                        center=torch.mean) -> torch.Tensor:
+    d_rf = score_real - center(score_fake)
+    d_fr = score_fake - center(score_real)
+    adv_rf = bce_with_logits(d_rf, torch.ones_like(score_real), mean)
+    adv_fr = bce_with_logits(d_fr, torch.zeros_like(score_fake), mean)
     return (adv_fr + adv_rf) / 2.0

@@ -91,14 +91,37 @@ class TorchBatchNorm(nn.BatchNorm2d):
     statistics and the normalisation run in float32 on float32 parameters and
     buffers whatever the input's dtype, and the result is rounded to it (as
     the JAX module's ``stat_dtype``); ``nn.BatchNorm2d`` would take a bf16
-    input only with bf16 buffers. State-dict keys are ``nn.BatchNorm2d``'s."""
+    input only with bf16 buffers. State-dict keys are ``nn.BatchNorm2d``'s.
+
+    ``process_group`` (set by ``GANTrainState.create`` with a mesh): in train
+    mode the mean and variance are those of the global batch, summed over the
+    group's ranks by differentiable all-reduces (two passes, as the
+    single-process variance), the running statistics updated with them, as
+    the JAX module computes on a batch sharded over the data axis."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             self.num_batches_tracked.add_(1)
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight.float(), self.bias.float(),
-                         self.training, self.momentum, self.eps)
-        return y.to(x.dtype)
+        if not self.training or self.process_group is None:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight.float(),
+                             self.bias.float(), self.training, self.momentum, self.eps)
+            return y.to(x.dtype)
+        from climsr_tpu_torch.parallel.mesh import all_reduce_sum
+
+        xf = x.float()
+        count = torch.tensor(float(x.numel() // x.shape[1]), device=x.device)
+        count = all_reduce_sum(count, self.process_group)
+        mean = all_reduce_sum(xf.sum(dim=(0, 2, 3)), self.process_group) / count
+        centred = xf - mean.view(1, -1, 1, 1)
+        var = all_reduce_sum(torch.square(centred).sum(dim=(0, 2, 3)), self.process_group) / count
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.detach())
+            self.running_var.mul_(1 - m).add_(m * var.detach() * count / (count - 1))
+        y = centred * torch.rsqrt(var + self.eps).view(1, -1, 1, 1)
+        return (y * self.weight.float().view(1, -1, 1, 1) + self.bias.float().view(1, -1, 1, 1)).to(x.dtype)
 
 
 @torch.no_grad()

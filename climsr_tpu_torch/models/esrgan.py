@@ -12,7 +12,9 @@ The counterpart of ``climsr_tpu.models.esrgan`` (reference
 - ``ResidualInResidualDenseBlock`` = 3 RDBs, out*0.2 + x; the third RDB folds
   that outer residual into the kernel's single write (``x0``),
 - generator: conv_first -> nb RRDBs -> trunk_conv + global skip ->
-  [nearest x2 upsample + conv + lrelu] x2 (scale 4) -> HRconv -> conv_last ->
+  [nearest x2 upsample + conv + lrelu] x2 (scale 4; with ``fused_upsample``,
+  the default, in the phase form of ``ops/fused_upsample_conv.py``, which
+  builds no nearest-x2 tensor) -> HRconv -> conv_last ->
   fusion head ``SRCNN(concat(out, elev_hr, mask_hr))``, whose conv1 input
   gradient is kernel C when there is one output channel (the JAX model turns
   it on under ``use_pallas`` alone, ``climsr_tpu/models/esrgan.py:289-292``,
@@ -37,7 +39,7 @@ from torch import nn
 
 from climsr_tpu_torch.models.common import TorchConv, init_torch_default_, leaky_relu
 from climsr_tpu_torch.models.srcnn import SRCNN
-from climsr_tpu_torch.ops.fused_upsample_conv import nearest_up2_conv3
+from climsr_tpu_torch.ops.fused_upsample_conv import nearest_up2_conv3, nearest_up2_conv3_plain
 from climsr_tpu_torch.ops.rdb import PackedWeights, fused_rdb, pack_rdb_weights
 
 
@@ -81,8 +83,11 @@ class ResidualInResidualDenseBlock(nn.Module):
 
 class ESRGANGenerator(nn.Module):
     """ESRGAN with the fusion head. ``in_channels`` counts the LR input channels
-    (climate + elevation + mask = 3); ``fused_upsample`` and ``concat_free`` are
-    accepted for config parity and change no number."""
+    (climate + elevation + mask = 3). ``fused_upsample`` picks the phase form
+    of the upsampling convs (``True``) or interpolate-then-conv (``False``),
+    as ``climsr_tpu/models/esrgan.py:243``: the same parameters and numbers up
+    to float reassociation. ``concat_free`` is accepted for config parity and
+    changes no number."""
 
     def __init__(
         self,
@@ -100,6 +105,7 @@ class ESRGANGenerator(nn.Module):
         if scaling_factor not in (2, 4):
             raise ValueError(f"ESRGAN upsamples by 2 or 4, got {scaling_factor}")
         self.scaling_factor = scaling_factor
+        self.up_conv = nearest_up2_conv3 if fused_upsample else nearest_up2_conv3_plain
         self.conv_first = TorchConv(in_channels, nf)
         self.RRDB_trunk = nn.Sequential(*(ResidualInResidualDenseBlock(nf, gc, concat_free) for _ in range(nb)))
         self.trunk_conv = TorchConv(nf, nf)
@@ -117,8 +123,8 @@ class ESRGANGenerator(nn.Module):
         fea = self.conv_first(x).contiguous(memory_format=torch.channels_last)
         trunk = self.RRDB_trunk(fea)
         fea = fea + self.trunk_conv(trunk)
-        fea = leaky_relu(nearest_up2_conv3(fea, self.upconv1.weight, self.upconv1.bias))
+        fea = leaky_relu(self.up_conv(fea, self.upconv1.weight, self.upconv1.bias))
         if self.scaling_factor == 4:
-            fea = leaky_relu(nearest_up2_conv3(fea, self.upconv2.weight, self.upconv2.bias))
+            fea = leaky_relu(self.up_conv(fea, self.upconv2.weight, self.upconv2.bias))
         out = self.conv_last(leaky_relu(self.HRconv(fea)))
         return self.srcnn(torch.cat([out, elev.to(out.dtype), mask.to(out.dtype)], dim=1))

@@ -17,9 +17,11 @@ reset just before it, less what was allocated before it) are held against
 ``reserve_bytes`` the caller will add afterwards (the Trainer's device tile
 store). ``torch.cuda.OutOfMemoryError`` is "does not fit", and so is an
 error that says the batch is past a size limit (as the JAX probe takes a
-compile error about memory or resources): PyTorch's NHWC nearest upsample,
-for one, refuses gradients of 2^31 elements or more, which the flagship's
-HR head (64 x 128 x 128 a tile) reaches at 2048 tiles. Each trial's
+compile error about memory or resources; PyTorch's NHWC nearest upsample
+refuses gradients of 2^31 elements or more, but ESRGAN's head runs it only
+with ``fused_upsample=False``: the phase form builds no nearest-x2 tensor, and
+on an 80 GB H100 the flagship's binsearch stops at 2688 tiles on memory,
+2880 needing more than the headroom). Each trial's
 tensors are freed and the allocator's cache emptied before the next. On the
 CPU ``fits`` returns None and the configured batch is kept, as the JAX probe
 does on a backend without memory statistics.

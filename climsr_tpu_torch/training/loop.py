@@ -15,8 +15,21 @@ Role parity with the reference's PL ``Trainer.fit``/``.test`` orchestration
   preemption (a forced checkpoint at the next step boundary),
 - test after fit over per-variable test loaders (multi-loader "temp" mode).
 
-The port runs on one device, ``device`` (``None`` means ``cuda``; without a
-card that raises unless ``device="cpu"``). The loaders are the JAX Trainer's:
+Each rank runs on one device, ``device`` (``None`` means ``cuda``; without a
+card that raises unless ``device="cpu"``). Where ``torch.distributed`` is
+initialized with several ranks, the Trainer builds the JAX Trainer's mesh
+(``("data",)``, or ``("data", "spatial")`` under ``spatial_shard_size``) over
+the world: every rank iterates the same seeded loader and its train step takes
+the rank's slice of each global batch (augmentation drawn for the global
+batch), ``zero_stage`` / ``shard_optimizer_state`` place the optimizer state
+(stage >= 1) and the parameters (stage 3) by the ZeRO rules, and
+``spatial_shard_size`` H-shards the generator's frames with a halo of
+``spatial_shard_halo`` LR rows. Each validation and test batch is split
+over the ranks for the generator (and D's scores) and gathered back, so every
+rank takes the metrics of the whole batch; rank 0 logs, runs the
+validation-end callbacks and writes the checkpoints, which hold the gathered
+shards in the single-process ``.ckpt`` layout. The loaders are the JAX
+Trainer's:
 by default the train tiles live on the device and each step gathers,
 augments and assembles its batch there (``trainer.device_augment`` with
 ``device_resident_data="auto"``); else raw tiles or host-augmented batches
@@ -31,8 +44,9 @@ size before the loaders are built (``training/batch_probe.py``); the
 epoch 0 (``utils/profiling.py``, ``profile_ops.txt``), and "jax" writes the
 fit's ``torch.profiler`` Chrome trace under ``trainer.profiler_dir``.
 
-Not ported, and raising with their ``ROADMAP.md`` item: more than one device,
-ZeRO, spatial sharding and multi-process runs (queue 1, item 8).
+Not ported, and raising with their ``ROADMAP.md`` item (queue 1, item 8):
+``auto_scale_batch_size`` across ranks, and the callbacks that change the
+model (pruning) under ZeRO.
 """
 from __future__ import annotations
 
@@ -69,6 +83,7 @@ from climsr_tpu_torch.data.pipeline import (
 )
 from climsr_tpu_torch.device import DeviceLike, resolve_device
 from climsr_tpu_torch.models import FUSION_GENERATORS, PRE_UPSCALED_GENERATORS, create_discriminator, create_generator
+from climsr_tpu_torch.parallel.mesh import create_mesh, world
 from climsr_tpu_torch.training.checkpoint import CheckpointManager, load_checkpoint, restore_generator_params
 from climsr_tpu_torch.training.optimizers import build_optimizer
 from climsr_tpu_torch.training.schedules import resolve_momentum_schedule, resolve_schedule
@@ -84,16 +99,16 @@ logger = logging.getLogger(__name__)
 _MULTI_GPU = "ROADMAP.md, queue 1, item 8: multi-GPU"
 
 
-def refuse_unported(trainer_cfg: TrainerConfig) -> None:
+def refuse_unported(trainer_cfg: TrainerConfig, callbacks: List) -> None:
     """Raise for the JAX Trainer's options the port does not carry yet."""
     tc = trainer_cfg
+    several = world()[1] > 1
+    changes_model = [type(cb).__name__ for cb in callbacks
+                     if any(hasattr(cb, h) for h in ("on_fit_start", "on_train_epoch_end", "on_train_batch_end"))]
     checks = [
-        (tc.num_devices not in (None, 1), f"trainer.num_devices={tc.num_devices}", _MULTI_GPU),
-        (bool(tc.zero_stage) or tc.shard_optimizer_state, "trainer.zero_stage / shard_optimizer_state",
-         _MULTI_GPU),
-        ((tc.spatial_shard_size or 0) > 1, f"trainer.spatial_shard_size={tc.spatial_shard_size}", _MULTI_GPU),
-        (torch.distributed.is_available() and torch.distributed.is_initialized()
-         and torch.distributed.get_world_size() > 1, "a multi-process run", _MULTI_GPU),
+        (several and bool(tc.auto_scale_batch_size), "trainer.auto_scale_batch_size across ranks", _MULTI_GPU),
+        (several and bool(tc.zero_stage or tc.shard_optimizer_state) and bool(changes_model),
+         f"callbacks that change the model ({', '.join(changes_model)}) under ZeRO", _MULTI_GPU),
     ]
     for bad, what, item in checks:
         if bad:
@@ -118,8 +133,9 @@ class Trainer:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        refuse_unported(trainer_cfg)
         self.callbacks = callbacks or []
+        refuse_unported(trainer_cfg, self.callbacks)
+        self.rank = world()[0]
         self.dm = datamodule
         self.generator_cfg = generator_cfg
         self.task_cfg = task_cfg
@@ -155,6 +171,26 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
+
+        # the mesh over the world (None for one rank), as the JAX Trainer's
+        # (climsr_tpu/training/loop.py:120-138): a trailing 'spatial' axis for
+        # spatial-shard training, the batch on 'data'
+        self.spatial_size = int(trainer_cfg.spatial_shard_size or 0)
+        mesh_axes = tuple(trainer_cfg.mesh_axes)
+        if self.spatial_size > 1:
+            if len(mesh_axes) == 1:
+                mesh_axes = (mesh_axes[0], "spatial")
+            if mesh_axes[-1] != "spatial":
+                raise ValueError(
+                    f"trainer.spatial_shard_size={self.spatial_size} needs a trailing 'spatial' mesh axis, but "
+                    f"trainer.mesh_axes={mesh_axes}: drop the custom mesh_axes or end it with 'spatial'.")
+            self.mesh = create_mesh(trainer_cfg.num_devices, mesh_axes, last_axis_size=self.spatial_size)
+        else:
+            self.mesh = create_mesh(trainer_cfg.num_devices, mesh_axes)
+        stage = trainer_cfg.zero_stage
+        if stage is None:
+            stage = 1 if trainer_cfg.shard_optimizer_state else 0
+        self.zero_stage = int(stage) if self.mesh is not None else 0
 
         # the trials of auto_scale_batch_size: (bs, peak_bytes, fits, oom) each
         self.batch_trials: List[Dict[str, Any]] = []
@@ -241,6 +277,11 @@ class Trainer:
         )
         n_params = sum(p.numel() for p in self.g_model.parameters())
         logger.info("Generator '%s': %.2fM params", self.generator_type, n_params / 1e6)
+        # fine-tune: generator-only weight graft (cli/train.py:112-121), before
+        # the state shards the parameters; (tensors copied, tensors of the generator)
+        self.graft = None
+        if training_cfg.model_weights:
+            self.graft = restore_generator_params(training_cfg.model_weights, self.g_model)
 
         # ---- optimizers ----------------------------------------------------
         g_opt_cfg = self.optimizers_cfg.get(T.generator_optimizer_key) or OptimizerConfig(lr=training_cfg.lr)
@@ -273,19 +314,20 @@ class Trainer:
                 d_opt_cfg, self.d_schedule, trainer_cfg.gradient_clip_val, accum,
                 b1_schedule=resolve_momentum_schedule(d_sched_cfg, self.num_training_steps), device=self.device,
             )
-            self.state = GANTrainState.create(self.g_model, self.g_tx, self.d_model, self.d_tx)
+            self.state = GANTrainState.create(self.g_model, self.g_tx, self.d_model, self.d_tx,
+                                              zero_stage=self.zero_stage, mesh=self.mesh)
         else:
-            self.state = TrainState.create(self.g_model, self.g_tx)
+            self.state = TrainState.create(self.g_model, self.g_tx, zero_stage=self.zero_stage, mesh=self.mesh)
 
-        # fine-tune: generator-only weight graft (cli/train.py:112-121);
-        # (tensors copied, tensors of the generator)
-        self.graft = None
-        if training_cfg.model_weights:
-            self.graft = restore_generator_params(training_cfg.model_weights, self.g_model)
 
         # ---- steps ---------------------------------------------------------
         step_kwargs = dict(compute_dtype=self.compute_dtype, augment=self._augment_kwargs,
-                           augment_seed=training_cfg.seed, store=self.train_store, device=self.device)
+                           augment_seed=training_cfg.seed, store=self.train_store, device=self.device,
+                           zero={"stage": self.zero_stage} if self.mesh is not None else None)
+        spatial_cfg = None
+        if self.spatial_size > 1:
+            spatial_cfg = {"mesh": self.mesh, "axis": "spatial", "halo": int(trainer_cfg.spatial_shard_halo),
+                           "scale": cfg.scale_factor}
         if self.is_gan:
             from climsr_tpu_torch.losses.perceptual import build_perceptual_loss
 
@@ -301,13 +343,14 @@ class Trainer:
                            perceptual_weight=task_cfg.perceptual_loss_factor,
                            adversarial_weight=task_cfg.adversarial_loss_factor, perceptual_fn=self.perceptual_fn)
             self.train_step = make_gan_step(self.g_model, self.d_model, self.generator_type,
-                                            perceptual_interval=task_cfg.perceptual_interval,
+                                            perceptual_interval=task_cfg.perceptual_interval, spatial=spatial_cfg,
                                             **weights, **step_kwargs)
             self.gan_val_losses = make_gan_val_losses(self.g_model, self.d_model, self.generator_type,
                                                       compute_dtype=self.compute_dtype, device=self.device,
                                                       **weights)
         else:
-            self.train_step = make_pretrain_step(self.g_model, self.generator_type, **step_kwargs)
+            self.train_step = make_pretrain_step(self.g_model, self.generator_type, spatial=spatial_cfg,
+                                                 **step_kwargs)
 
         zmean, zstd = 0.0, 0.0
         if cfg.normalization_method == "zscore":
@@ -412,16 +455,50 @@ class Trainer:
             return [(self.state.g_optimizer, self.g_schedule), (self.state.d_optimizer, self.d_schedule)]
         return [(self.state.optimizer, self.g_schedule)]
 
+    def _partitions(self) -> List:
+        """The ZeRO partitions of the state, in :meth:`_optimizers` order (None on one rank)."""
+        if self.is_gan:
+            return [self.state.g_partition, self.state.d_partition]
+        return [self.state.partition]
+
+    def _materialized(self):
+        """ZeRO-3: the models' parameters gathered for the block (evaluation,
+        checkpoints), released after it."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            parts = [p for p in self._partitions() if p is not None]
+            for p in parts:
+                p.materialize()
+            try:
+                yield
+            finally:
+                for p in parts:
+                    p.release()
+
+        return ctx()
+
+    def _save_checkpoint(self, hp_metric, force: bool = False) -> None:
+        """Every rank gathers its shards into the payload; rank 0 writes it."""
+        payload = self._payload()
+        if self.rank == 0:
+            self.ckpt.save(self.global_step, payload, hp_metric=hp_metric, config=self.config_snapshot, force=force)
+
     def _payload(self) -> Dict[str, Any]:
-        """The checkpoint dict of the run as it stands (PL ``.ckpt`` layout)."""
-        sd = {f"generator.{k}": v for k, v in self.g_model.state_dict().items()}
-        if self.d_model is not None:
-            sd.update({f"discriminator.{k}": v for k, v in self.d_model.state_dict().items()})
+        """The checkpoint dict of the run as it stands (PL ``.ckpt`` layout;
+        sharded parameters and optimizer state are gathered to full shape)."""
+        with self._materialized():
+            sd = {f"generator.{k}": v.clone() for k, v in self.g_model.state_dict().items()}
+            if self.d_model is not None:
+                sd.update({f"discriminator.{k}": v.clone() for k, v in self.d_model.state_dict().items()})
+        opt_states = [opt.state_dict() if part is None or part.stage < 1 else part.full_optimizer_state(opt.state_dict())
+                      for (opt, _), part in zip(self._optimizers(), self._partitions())]
         return {
             "epoch": self._epoch,
             "global_step": self.global_step,
             "state_dict": sd,
-            "optimizer_states": [opt.state_dict() for opt, _ in self._optimizers()],
+            "optimizer_states": opt_states,
             "lr_schedulers": [{"last_epoch": opt.updates, "_last_lr": [float(sched(opt.updates))]}
                               for opt, sched in self._optimizers()],
             "hyper_parameters": self.config_snapshot or {},
@@ -429,12 +506,17 @@ class Trainer:
 
     def _load_payload(self, ckpt: Dict[str, Any]) -> None:
         sd = ckpt["state_dict"]
-        self.g_model.load_state_dict({k[len("generator."):]: v for k, v in sd.items() if k.startswith("generator.")})
-        if self.d_model is not None:
-            self.d_model.load_state_dict(
-                {k[len("discriminator."):]: v for k, v in sd.items() if k.startswith("discriminator.")})
-        for (opt, _), state in zip(self._optimizers(), ckpt["optimizer_states"]):
-            opt.load_state_dict(state)
+        with self._materialized():
+            self.g_model.load_state_dict(
+                {k[len("generator."):]: v for k, v in sd.items() if k.startswith("generator.")})
+            if self.d_model is not None:
+                self.d_model.load_state_dict(
+                    {k[len("discriminator."):]: v for k, v in sd.items() if k.startswith("discriminator.")})
+            for part in self._partitions():
+                if part is not None:
+                    part.reshard()
+        for (opt, _), part, state in zip(self._optimizers(), self._partitions(), ckpt["optimizer_states"]):
+            opt.load_state_dict(state if part is None or part.stage < 1 else part.shard_optimizer_state(state))
         self.global_step = int(ckpt["global_step"])
         self.state.step = self.global_step
 
@@ -554,8 +636,7 @@ class Trainer:
                             logger.exception("Callback %s on_train_epoch_end failed", type(cb).__name__)
             if self.preempted:
                 # force=True: the preemption save lands even when save_top_k=0
-                self.ckpt.save(self.global_step, self._payload(), hp_metric=None,
-                               config=self.config_snapshot, force=True)
+                self._save_checkpoint(None, force=True)
                 logger.warning(
                     "Preemption checkpoint saved at step %d under %s — resume with "
                     "trainer.resume_from_checkpoint", self.global_step, self.workdir / "checkpoints",
@@ -564,8 +645,7 @@ class Trainer:
             if (epoch + 1) % tc.check_val_every_n_epoch == 0 or epoch == max_epochs - 1:
                 last_val = self._staged("validate", self.validate, epoch)
                 hp_metric = last_val.get("hp_metric")
-                self._staged("checkpoint", lambda: self.ckpt.save(
-                    self.global_step, self._payload(), hp_metric=hp_metric, config=self.config_snapshot))
+                self._staged("checkpoint", self._save_checkpoint, hp_metric)
                 if hp_metric is not None and tc.early_stopping_patience:
                     if hp_metric < self.early_stop_best - 1e-12:
                         self.early_stop_best = hp_metric
@@ -670,6 +750,10 @@ class Trainer:
         return {k: v / max(weights, 1e-9) for k, v in sums.items()}
 
     def validate(self, epoch: int) -> Dict[str, float]:
+        with self._materialized():
+            return self._validate(epoch)
+
+    def _validate(self, epoch: int) -> Dict[str, float]:
         out = self._eval_loop(self.val_loader, consts.stages.val, extra_gan_losses=True)
         # hp_metric = epoch mean of val/rmse (reference task.py:388-391)
         if "val/rmse" in out:
@@ -678,7 +762,7 @@ class Trainer:
         logger.info("epoch %d val: rmse=%.5f psnr=%.3f ssim=%.4f", epoch,
                     out.get("val/rmse", float("nan")), out.get("val/psnr", float("nan")),
                     out.get("val/ssim", float("nan")))
-        for cb in self.callbacks:
+        for cb in self.callbacks if self.rank == 0 else ():
             hook = getattr(cb, "on_validation_end", None)
             if hook is None:
                 continue
@@ -691,7 +775,8 @@ class Trainer:
     def test(self) -> List[Dict[str, float]]:
         results = []
         for idx, loader in enumerate(self.test_loaders):
-            out = self._eval_loop(loader, consts.stages.test)
+            with self._materialized():
+                out = self._eval_loop(loader, consts.stages.test)
             tagged = {f"{k}/{idx}" if len(self.test_loaders) > 1 else k: v for k, v in out.items()}
             self.metric_logger.log_metrics(tagged, self.global_step)
             results.append(out)

@@ -122,6 +122,9 @@ class ScheduledOptimizer:
         else:
             raise KeyError(f"Unknown optimizer '{cfg.name}'")
         self.updates = 0  # inner updates so far: the schedules' step
+        # the clip's global norm of the gradients; across ranks the state's
+        # ZeroPartition.grad_norm (each element counted once over the shards)
+        self.norm_fn = None
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
 
@@ -146,7 +149,8 @@ class ScheduledOptimizer:
             grads, self.acc, self.mini_step = self.acc, None, 0
         clip = self.spec.gradient_clip_val
         if clip and clip > 0:
-            norm = math.sqrt(sum(float(g.float().square().sum()) for g in grads))
+            norm = (float(self.norm_fn(grads)) if self.norm_fn is not None
+                    else math.sqrt(sum(float(g.float().square().sum()) for g in grads)))
             if not norm < clip:
                 grads = [g * (clip / norm) for g in grads]
         for p, g in zip(self.params, grads):

@@ -307,8 +307,13 @@ def test_gan_val_losses_match_jax(gan_case):
 def test_gan_step_refuses_options_of_later_slices():
     g = create_generator("esrgan", device="cpu", train=True, nf=16, nb=1, gc=8, out_channels=1)
     d = create_discriminator("esrgan", device="cpu", hr_size=HR, **D_KW)
-    for option in ("zero", "spatial"):  # augment and store are ported (test_torch_data.py)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_gan_step(g, d, "esrgan", device="cpu", **{option: {}})
+    # zero and spatial are ported (tests/test_torch_parallel.py,
+    # tests/test_torch_spatial.py): a malformed dict of either raises
+    for value in ({}, {"stage": -1}, {"stage": 1, "g_shardings": None}):
+        with pytest.raises(ValueError, match="zero"):
+            make_gan_step(g, d, "esrgan", device="cpu", zero=value)
+    for value in ({}, {"mesh": None, "shardings": None}):
+        with pytest.raises(ValueError, match="spatial"):
+            make_gan_step(g, d, "esrgan", device="cpu", spatial=value)
     with pytest.raises(ValueError):
         make_gan_val_losses(g, d, "esrgan", device="meta")

@@ -300,6 +300,37 @@ def test_inference_on_full_images_matches_jax(tmp_path, rng, esrgan_pair, tile_s
     np.testing.assert_array_equal(back.data[0], _tifs(got)[0][::-1])
 
 
+def test_tiled_sweeps_gap_to_the_whole_frame_is_the_jax_packages(tmp_path, rng, esrgan_pair):
+    """The tiled sweep is no stand-in for the whole frame: its tiles see
+    ``overlap`` pixels of context and the frame is reflect-padded to the tile
+    grid where the whole frame zero-pads. That gap is the JAX package's own:
+    the port's tiled-minus-whole GeoTIFFs equal the JAX package's within two
+    12-bit steps, and the gap is over 10x that."""
+    m, params, port = esrgan_pair
+    f = _write_world(tmp_path, rng)
+    ds_kwargs = dict(ds_path=f["nc"], elevation_file=f["elevation_file"], land_mask_file=f["land_mask_file"],
+                     generator_type="esrgan", scaling_factor=4)
+    gaps = {}
+    for pkg in ("jax", "port"):
+        runs = {}
+        for tile_size in (16, None):
+            out = str(tmp_path / f"{pkg}{tile_size}" / "tmp")
+            run = dict(generator_type="esrgan", batch_size=2, tile_size=tile_size, tile_overlap=4)
+            if pkg == "jax":
+                paths = jax_inference_on_full_images(m, params, jax_datasets.CRUTSInferenceDataset(**ds_kwargs), out,
+                                                     **run)
+            else:
+                paths = inference_on_full_images(port, datasets.CRUTSInferenceDataset(**ds_kwargs), out, device="cpu",
+                                                 **run)
+            runs[tile_size] = np.stack(_tifs(paths))
+        gaps[pkg] = runs[16] - runs[None]
+    ds = datasets.CRUTSInferenceDataset(**ds_kwargs)
+    half = np.array([(float(ds[i]["max"]) - float(ds[i]["min"])) / 2 for i in range(len(ds))])[:, None, None]
+    tol = 2 * MAX_ABS_ERR + 2e-4
+    np.testing.assert_allclose(gaps["port"] / half, gaps["jax"] / half, rtol=0, atol=tol)
+    assert np.nanmax(np.abs(gaps["jax"]) / half) > 10 * tol
+
+
 def test_readback_outside_the_two_encodings_raises(tmp_path, rng, esrgan_pair):
     f = _write_world(tmp_path, rng, months=1)
     ds = datasets.CRUTSInferenceDataset(ds_path=f["nc"], elevation_file=f["elevation_file"],

@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "scripts.bench_rdb_widths", "io.feather", "native", "preprocessing.preprocessing",
                  "preprocessing.cleanup", "preprocessing.data_download", "preprocessing.scrape_polish_mountains",
                  "result_inspection.models", "cli.preprocess", "cli.data_download", "cli.data_preparation",
-                 "cli.inspect_results", "data.utils", "consts.plotting", "consts.result_inspection"):
+                 "cli.inspect_results", "data.utils", "consts.plotting", "consts.result_inspection",
+                 "parallel.mesh", "parallel.halo", "parallel.launch", "parallel.cases"):
         assert f"climsr_tpu_torch.{name}" in MODULES
 
 

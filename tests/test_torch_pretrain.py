@@ -187,9 +187,19 @@ def test_train_model_keeps_f32_params_and_computes_in_bf16(rng):
 
 
 def test_steps_refuse_options_of_later_slices():
+    """``zero`` and ``spatial`` are ported (tests/test_torch_parallel.py,
+    tests/test_torch_spatial.py); a malformed dict of either raises, and so
+    does a ZeRO stage the state was not made at."""
     model = create_generator("esrgan", device="cpu", train=True, nf=16, nb=1, gc=8, out_channels=1)
-    for option in ("zero", "spatial"):  # augment and store are ported (test_torch_data.py)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_pretrain_step(model, "esrgan", device="cpu", **{option: {}})
+    for option, value in (("zero", {}), ("zero", {"stage": 4}), ("zero", {"stage": 2, "shardings": None}),
+                          ("spatial", {}), ("spatial", {"mesh": None, "halo": 8, "depth": 2})):
+        with pytest.raises(ValueError, match=option):
+            make_pretrain_step(model, "esrgan", device="cpu", **{option: value})
+    step = make_pretrain_step(model, "esrgan", device="cpu", zero={"stage": 2})
+    tx = build_optimizer(OptimizerConfig(name="adam", lr=1e-3), lambda s: 1e-3, device="cpu")
+    with pytest.raises(ValueError, match="needs a state made with a mesh"):
+        step(TrainState.create(model, tx), {})
+    with pytest.raises(ValueError, match="needs a mesh"):
+        TrainState.create(model, tx, zero_stage=1)
     with pytest.raises(ValueError):
         make_eval_step(model, "esrgan", device="meta")

@@ -305,25 +305,36 @@ def test_gan_fine_tune_through_the_trainer(tiny_world, tmp_path):
     assert load_discriminator_checkpoint(ckpt) and len(torch.load(ckpt, weights_only=True)["optimizer_states"]) == 2
 
 
-def test_unported_options_raise_naming_their_roadmap_item(tiny_world, tmp_path):
-    """The multi-GPU options (item 8) still raise, naming their item; the
-    options of item 9 and the callbacks of item 11 (auto_scale_batch_size, the
-    jax/advanced/pytorch profilers, the pruning callbacks, log_images, the
-    search, the LR range test) compose and build."""
+def test_unported_options_raise_naming_their_roadmap_item(tiny_world, tmp_path, monkeypatch):
+    """What item 8 leaves (across ranks: auto_scale_batch_size, and the
+    pruning callbacks under ZeRO) raises, naming it; the multi-GPU options
+    (num_devices, ZeRO, spatial sharding), the options of item 9 and the
+    callbacks of item 11 (auto_scale_batch_size, the jax/advanced/pytorch
+    profilers, the pruning callbacks, log_images, the search, the LR range
+    test) compose and build. On one process ``trainer.num_devices=2`` names
+    the ranks it wants."""
     from climsr_tpu_torch.config.schemas import TrainerConfig
-    from climsr_tpu_torch.training import lr_finder
+    from climsr_tpu_torch.training import loop, lr_finder
     from climsr_tpu_torch.training.callbacks import LogImagesCallback, ModelPruningCallback, build_callbacks
     from climsr_tpu_torch.training.loop import refuse_unported
 
-    for kw, item in ((dict(num_devices=2), "item 8"), (dict(zero_stage=2), "item 8"),
-                     (dict(spatial_shard_size=2), "item 8"), (dict(auto_scale_batch_size=True), "item 9"),
-                     (dict(profiler="jax"), "item 9"), (dict(profiler="advanced"), "item 9")):
-        if item == "item 8":
-            with pytest.raises(NotImplementedError, match=item):
-                refuse_unported(TrainerConfig(**kw))
-        else:
-            refuse_unported(TrainerConfig(**kw))
-    refuse_unported(TrainerConfig(num_devices=1, profiler="simple"))
+    pruning = build_callbacks(["model_pruning"])
+    for kw, cbs in ((dict(num_devices=2), []), (dict(zero_stage=2), []), (dict(spatial_shard_size=2), []),
+                    (dict(auto_scale_batch_size=True), []), (dict(profiler="jax"), []),
+                    (dict(profiler="advanced"), []), (dict(zero_stage=2), pruning)):
+        refuse_unported(TrainerConfig(**kw), cbs)  # one process
+    monkeypatch.setattr(loop, "world", lambda: (0, 4))  # four ranks
+    refuse_unported(TrainerConfig(num_devices=4, zero_stage=3, spatial_shard_size=2), [])
+    for kw, cbs in ((dict(auto_scale_batch_size=True), []), (dict(zero_stage=1), pruning),
+                    (dict(shard_optimizer_state=True), pruning)):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            refuse_unported(TrainerConfig(**kw), cbs)
+    monkeypatch.undo()
+    refuse_unported(TrainerConfig(num_devices=1, profiler="simple"), [])
+    from climsr_tpu_torch.parallel.mesh import create_mesh
+
+    with pytest.raises(ValueError, match="the process group has 1 ranks"):
+        create_mesh(2)  # the Trainer's mesh for trainer.num_devices=2
     for name in ("model_pruning", "lottery_ticket"):
         (cb,) = build_callbacks([name])
         assert isinstance(cb, ModelPruningCallback) and cb.use_lottery_ticket_hypothesis == (name != "model_pruning")
