@@ -662,7 +662,11 @@ def assert_bitwise_repeatable(tag: str, run) -> None:
 
 def phase_train_kernels(device, gc=GC, shapes=B_CHECKED) -> dict:
     """Kernels B1 and B2 at growth width ``gc`` against rdb_fwd_save_reference /
-    rdb_bwd_reference; times, bounds and B2's repeatability at the training shape."""
+    rdb_bwd_reference (in f64 for B2 in f32: the plain f32 dW, cuDNN's sum over
+    every pixel, strays from the exact sums as the batch grows, past the f32
+    tolerance at M8's 384 x 64 x 32 x 32, where the kernel's does not; the
+    print shows both); times, bounds and B2's repeatability at the training
+    shape."""
     from climsr_tpu_torch.ops.rdb import (
         fused_rdb_bwd, fused_rdb_fwd_save, pack_rdb_weights, rdb_bwd_reference, rdb_fwd_save_reference,
     )
@@ -685,13 +689,20 @@ def phase_train_kernels(device, gc=GC, shapes=B_CHECKED) -> dict:
                 dx, dws, dbs = fused_rdb_bwd(feat, g, weights, gy, gx)
                 torch.cuda.synchronize()
                 ref_dx, ref_dws, ref_dbs = rdb_bwd_reference(feat, g, weights, gy, gx)
+                gap = ""
+                if dtype == torch.float32:  # dW sums every pixel: hold it against the exact sums
+                    f32_dws = ref_dws
+                    ref_dx, ref_dws, ref_dbs = rdb_bwd_reference(
+                        feat.double(), g.double(), [(wt.double(), b.double()) for wt, b in weights], gy, gx)
+                    gap = (f"; B2 against the plain version in f64, the plain f32 dW "
+                           f"{max(rel_err(a, b)[1] for a, b in zip(f32_dws, ref_dws)):.2e} from it")
                 checks["dx"] = rel_err(dx, ref_dx)
                 for k in range(5):
                     checks[f"dW{k + 1}"] = rel_err(dws[k], ref_dws[k])
                     checks[f"db{k + 1}"] = rel_err(dbs[k], ref_dbs[k])
                 worst = max(r for _, r in checks.values())
                 print(f"# B1/B2 {tag} (gy, gx)=({gy}, {gx}): relative err "
-                      + ", ".join(f"{k} {r:.2e}" for k, (_, r) in checks.items()) + f" (tol {tol:g})")
+                      + ", ".join(f"{k} {r:.2e}" for k, (_, r) in checks.items()) + f" (tol {tol:g}{gap})")
                 if not (worst <= tol):
                     raise AssertionError(f"B1/B2 {tag}: kernels disagree with the plain versions ({worst:.3e})")
                 if (n, dtype, res) == (TRAIN_N, torch.bfloat16, None):
@@ -1908,12 +1919,13 @@ def phase_pruning(device, root: Path, tables: dict, card: str) -> dict:
     weights pruned at epoch 1 still exactly 0 after epoch 2's steps; the fit
     against the same fit through the plain versions; the pruned generator
     through kernel A against the plain RDB on a validation batch (a stale
-    packing of the pruned weights would show here)."""
+    packing of the pruned weights would show here). Returns each callback's
+    logged train/loss and val/rmse beside the launches (phase M7's reference)."""
     from climsr_tpu_torch.data.pipeline import build_eval_device_store, gather
     from climsr_tpu_torch.models import apply_generator_batch
     from climsr_tpu_torch.training.callbacks import ModelPruningCallback
 
-    result = dict(launches=dict.fromkeys(kernel_counters(), 0))
+    result = dict(launches=dict.fromkeys(kernel_counters(), 0), runs={})
     for name in ("model_pruning", "lottery_ticket"):
         overrides = ["experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
                      f"callbacks=[{name}]", f"trainer.max_epochs={TRAINER_EPOCHS}", "training.run_test_after_fit=false"]
@@ -1971,6 +1983,8 @@ def phase_pruning(device, root: Path, tables: dict, card: str) -> dict:
         if not traj <= TRAJECTORY_TOL or not gen_err <= GENERATOR_TOL[torch.bfloat16]:
             raise AssertionError(f"R {name}: the pruned run through the kernels disagrees with the plain versions")
         result["launches"] = {k: v + r["launches"][k] for k, v in result["launches"].items()}
+        result["runs"][name] = dict(train_loss=[x["train/loss"] for x in r["train"]],
+                                    val_rmse=[x["val/rmse"] for x in r["val"]])
     return result
 
 
@@ -2065,7 +2079,9 @@ def phase_batch_probe(device, root: Path, tables: dict, card: str) -> dict:
             print(f"# P {mode} trial: batch {t['bs']}, step peak {t['peak_bytes'] / 1e9:.3f} GB, fits {t['fits']}{why}")
         failed = [t["bs"] for t in tr.batch_trials if not t["fits"]]
         print(f"# P {mode}: chosen batch {chosen} (from {TRAIN_N}); {len(tr.batch_trials)} trials in {r['wall']:.3f} s; "
-              f"launches {r['launches']}; limit {PROBE_HEADROOM:g} x {total / 1e9:.3f} GB ({card})")
+              f"launches {r['launches']}; limit {PROBE_HEADROOM:g} x the usable GB (free on the card plus the process's "
+              f"own) {sorted({round(t['usable_bytes'] / 1e9, 3) for t in tr.batch_trials})} of {total / 1e9:.3f} "
+              f"({card})")
         if chosen < TRAIN_N or not failed or min(failed) > 2 * chosen:
             raise AssertionError(f"P {mode}: chose {chosen}; the trials did not show that {2 * chosen} fails: "
                                  f"{tr.batch_trials}")
@@ -2611,6 +2627,12 @@ M6_TOL, M6_SPATIAL_TOL = 1e-4, 1e-2
 # (the card's readings: 9.4e-02, 3.7e-03, 8.9e-01; at 32 px of overlap 3.3e-02,
 # 3.0e-03, 8.9e-01)
 M5_TILED_MAX, M5_TILED_MEAN, M5_TILED_EDGE = 0.3, 1e-2, 1.0
+# M7: cli.train with the pruning callbacks over the ranks, (ZeRO stage, callback)
+# each, against phase R's single-rank run of the same callback at M6_TOL
+M7_RUNS = ((1, "model_pruning"), (2, "model_pruning"), (3, "model_pruning"), (2, "lottery_ticket"))
+M7_SPARSITY = (50.0, 75.0)  # % of the prunable elements after each epoch
+# M8: trainer.auto_scale_batch_size over the ranks, each mode
+M8_MODES = ("power", "binsearch")
 
 
 def m_batch(n: int, lr_h: int, lr_w: int, seed: int) -> dict:
@@ -2790,11 +2812,47 @@ def m_gather_rows(t: torch.Tensor, mesh, n_rows: int, per: int) -> torch.Tensor:
     return torch.cat(parts, dim=2)[:, :, :n_rows]
 
 
+def m_pruning_summary(record: list) -> list:
+    """A pruning record (``parallel.cases.RecordedPruning``) as JSON, one
+    entry an epoch: the sparsity the callback reports and the share of the
+    prunable elements at 0 in the full weights after the pruning; whether the
+    positions pruned the epoch before were still 0 after this epoch's steps
+    (``kept``) and this epoch's after the pruning (``pruned``), each as
+    [in the full weights, in the rank's shards]; digests of the masks and of
+    the weights the pruning read."""
+    from climsr_tpu_torch.parallel.cases import digest
+
+    out = []
+    for r in record[1:]:
+        masks = r["masks"]
+        total = sum(m.size for m in masks.values())
+        zeros = sum(int((r["after"][k] == 0).sum()) for k in masks)
+        out.append(dict(reported=r["sparsity"], measured=zeros / total, kept=list(r["kept"]),
+                        pruned=list(r["pruned"]), masks=digest(masks.values()),
+                        before=digest(v.numpy() for v in r["before"].values())))
+    return out
+
+
+def m_probe_only(tr):
+    """A Trainer holding only what ``Trainer._probe_batch_size`` reads of
+    ``tr`` (its configuration and datamodule, none of its models or stores on
+    the card), with no trials yet: M8's one-rank probe on it finds the card as
+    the ranks' probe found it."""
+    from climsr_tpu_torch.training.loop import Trainer
+
+    bare = object.__new__(Trainer)
+    bare.__dict__.update({k: getattr(tr, k) for k in ("dm", "device", "generator_type", "generator_cfg",
+                                                      "compute_dtype", "training_cfg", "optimizers_cfg",
+                                                      "trainer_cfg")}, batch_trials=[])
+    return bare
+
+
 def phase_multi_rank(root: str) -> None:
     """One rank of phase M (started by :func:`phase_multi` under gloo, on
-    ``cuda:0`` with the other ranks): M1-M6 through the port's entry points,
-    each part's kernel launches counted from 0, every launch's shape
-    recorded; the results go to ``root/rank<r>.json`` and ``.pt``."""
+    ``cuda:0`` with the other ranks): M1-M8 through the port's entry points,
+    each part's kernel launches counted from 0, every launch's shape of M1-M7
+    and of M8's steps recorded, M8's one-rank probe run after the counted
+    window; the results go to ``root/rank<r>.json`` and ``.pt``."""
     import torch.distributed as dist
     import torch.nn.functional as F
 
@@ -2803,6 +2861,7 @@ def phase_multi_rank(root: str) -> None:
     from climsr_tpu_torch.models import create_generator
     from climsr_tpu_torch.models.rcan import CALayer
     from climsr_tpu_torch.parallel import halo as H
+    from climsr_tpu_torch.parallel.cases import recorded_pruning
     from climsr_tpu_torch.parallel.mesh import all_gather_dim, axis_info, create_mesh, reduce_scatter_dim
 
     root_p = Path(root)
@@ -2943,6 +3002,57 @@ def phase_multi_rank(root: str) -> None:
             train_main(base + ["trainer.zero_stage=2", f"training.output_dir={root_p / 'zero2'}"], device=device)
             train_main(base + ["plugins=spatial_shard", "trainer.spatial_shard_halo=4",
                                f"training.output_dir={root_p / 'spatial'}"], device=device)
+        # M7: cli.train with the pruning callbacks under ZeRO 1-3, each epoch's pruning recorded
+        with part("M7"):
+            for stage, name in M7_RUNS:
+                record = []
+                with recorded_pruning(record):
+                    train_main(base + [f"callbacks=[{name}]", f"trainer.zero_stage={stage}",
+                                       "training.run_test_after_fit=false",
+                                       f"training.output_dir={root_p / f'prune{stage}_{name}'}"], device=device)
+                out[f"M7 {stage} {name}"] = m_pruning_summary(record)
+    # M8: the batch probe over the ranks, then one step at the chosen batch on every rank at once. The trials
+    # (rank 0's, up to the card's memory, as P's) are counted; the steps' shapes are recorded
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()  # every rank's cache is empty before rank 0's trials
+
+    probes = {}
+    with part("M8"):
+        for mode in M8_MODES:
+            release()
+            held_gb = torch.cuda.memory_allocated() / 1e9
+            trainers = []
+            with keep_trainers(trainers):
+                train_main(base + [f"trainer.auto_scale_batch_size={mode}", "training.run_fit=false",
+                                   "training.run_test_after_fit=false",
+                                   f"training.output_dir={root_p / f'probe_{mode}'}"], device=device)
+            (tr,) = trainers
+            chosen = tr.dm.cfg.batch_size
+            idx = torch.arange(chosen) % len(tr.dm.train_dataset)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            with recorded_shapes() as step_shapes:
+                tr.state, metrics = tr.train_step(tr.state, idx)
+            for k, v in step_shapes.items():
+                shapes.setdefault(k, set()).update(v)
+            out[f"M8 {mode}"] = dict(batch=chosen, trials=tr.batch_trials, loss=metrics["train/loss"].item(),
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9, held_gb=held_gb)
+            probes[mode] = m_probe_only(tr)
+            del tr, trainers, metrics
+    # one rank's probe from the same start under the same split, outside the counted window: on rank 0, with
+    # nothing of the runs left on the card, while the others wait
+    for mode in M8_MODES:
+        release()
+        ref = None
+        if rank == 0:
+            bare = probes[mode]
+            bare.dm.cfg.batch_size = out[f"M8 {mode}"]["trials"][0]["bs"]
+            ref = dict(batch=bare._probe_batch_size(M_RANKS, PROBE_HEADROOM / M_RANKS), trials=bare.batch_trials)
+        out[f"M8 {mode}"]["ref"] = ref
+    release()
     out["shapes"] = {k: sorted([list(n), list(w) if isinstance(w, tuple) else w, str(dt)] for n, w, dt in v)
                      for k, v in shapes.items()}
     (root_p / f"rank{rank}.json").write_text(json.dumps(out))
@@ -2960,13 +3070,15 @@ class _LocalPoolRCAN(torch.nn.Module):
         return self.rcan(*args)
 
 
-def phase_multi(device, root: Path, card: str, trainer: dict) -> dict:
+def phase_multi(device, root: Path, card: str, trainer: dict, pruning: dict) -> dict:
     """M: the port's multi-rank code, 4 gloo ranks sharing the one card (NCCL
     refuses two ranks on one card): the references from one rank here, the
     ranks' results held against them, and A, B1, B2 and C at every shape the
-    ranks launched them against their plain versions. ``trainer`` is phase
-    13's result: its set, best checkpoint and logged single-rank run. Times
-    from ranks that share a card are not multi-GPU figures."""
+    ranks launched them in M1-M7 and in M8's steps against their plain
+    versions. ``trainer`` is phase 13's result: its set, best checkpoint and
+    logged single-rank run;
+    ``pruning`` is phase R's logged single-rank run of each pruning callback.
+    Times from ranks that share a card are not multi-GPU figures."""
     from climsr_tpu_torch.consts import datasets_and_preprocessing as D
     from climsr_tpu_torch.data.tables import Table, write_feather
     from climsr_tpu_torch.interop.params import load_generator_checkpoint
@@ -3223,7 +3335,54 @@ def phase_multi(device, root: Path, card: str, trainer: dict) -> dict:
               f"{mgr.best_step} loads in one rank with strict=True")
         check(len(losses) == len(trainer["train_loss"]) and len(rmse) == len(trainer["val_rmse"]) and err <= tol
               and np.isfinite(losses + rmse).all(), f"M6 {tag}: the run over the ranks disagrees with phase 13's run")
-    # A, B1, B2 and C at every shape the ranks launched them
+    # M7: every rank's pruning, and the runs against phase R's one rank with the same callback
+    for stage, name in M7_RUNS:
+        label = f"M7 {stage} {name}"
+        epochs = [r[label] for r in res]
+        (run_dir,) = (m_root / f"prune{stage}_{name}" / "outputs" / "runs" / "esrgan").iterdir()
+        rows = metric_rows(run_dir / "metrics.csv")
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        rmse = [r["val/rmse"] for r in rows if "val/rmse" in r]
+        ref = pruning[name]
+        pairs = list(zip(losses, ref["train_loss"])) + list(zip(rmse, ref["val_rmse"]))
+        err = max(abs(a - b) / abs(b) for a, b in pairs)
+        measured = [[round(100 * e["measured"], 1) for e in got] for got in epochs]
+        reported = [[round(100 * e["reported"], 1) for e in got] for got in epochs]
+        same = all([(e["masks"], e["before"]) for e in got] == [(e["masks"], e["before"]) for e in epochs[0]]
+                   for got in epochs)
+        zeros = all(e["kept"] == [True, True] and e["pruned"] == [True, True] for got in epochs for e in got)
+        print(f"# {label} over {M_RANKS} ranks: sparsity after each epoch, measured on each rank's gathered "
+              f"generator {measured} (reported {reported}; want {list(M7_SPARSITY)}); pruned positions 0 after the "
+              f"next steps and after each pruning, in the gathered weights and every rank's shards: {zeros}; masks "
+              f"and the weights they were taken from identical on every rank: {same}; train/loss "
+              f"{['%.6f' % v for v in losses]}, val/rmse {['%.6f' % v for v in rmse]} against phase R's one rank "
+              f"{['%.6f' % v for v in ref['train_loss']]}, {['%.6f' % v for v in ref['val_rmse']]}: {err:.2e} "
+              f"relative (tol {M6_TOL:g})")
+        check(all(m == list(M7_SPARSITY) for m in measured + reported) and zeros and same
+              and len(losses) == len(ref["train_loss"]) and len(rmse) == len(ref["val_rmse"]) and err <= M6_TOL
+              and np.isfinite(losses + rmse).all(), f"{label}: the pruning over the ranks is wrong or disagrees "
+                                                    f"with one rank")
+    # M8: one batch on every rank, one rank's probe's, and a step at it on every rank at once
+    for mode in M8_MODES:
+        got = [r[f"M8 {mode}"] for r in res]
+        batches = [g["batch"] for g in got]
+        ref = got[0]["ref"]
+
+        def trials(ts):
+            return [(t["bs"], round(t["peak_bytes"] / 1e9, 3), t["fits"]) for t in ts]
+
+        usable = sorted({round(t["usable_bytes"] / 1e9, 3) for t in got[0]["trials"]})
+        print(f"# M8 {mode} over {M_RANKS} ranks sharing the card: batch {batches} (from {TRAIN_N}); one rank's probe "
+              f"at a rank's slice ({M_RANKS} shards) under {PROBE_HEADROOM:g} / {M_RANKS} of the usable memory, on "
+              f"rank 0 after the runs while the others waited: {ref['batch']}; trials (global batch, step peak GB, fits) on rank 0 "
+              f"{trials(got[0]['trials'])}, one rank's {trials(ref['trials'])}, on ranks 1-3 "
+              f"{[len(g['trials']) for g in got[1:]]}; usable GB (free on the card plus rank 0's own) {usable}, "
+              f"{got[0]['held_gb']:.3f} GB held by rank 0 before; a step at the batch on all {M_RANKS} ranks at once "
+              f"({-(-batches[0] // M_RANKS)} samples a rank): "
+              f"losses {['%.6f' % g['loss'] for g in got]}, peak GB {['%.3f' % g['peak_gb'] for g in got]} ({card})")
+        check(batches == [ref["batch"]] * M_RANKS and ref["batch"] >= TRAIN_N and not any(g["trials"] for g in got[1:])
+              and all(np.isfinite(g["loss"]) for g in got), f"M8 {mode}: the ranks' batch is not one rank's probe's")
+    # A, B1, B2 and C at every shape the ranks launched them in M1-M7 and in M8's steps
     merged = {}
     for r in res:
         for k, v in r["shapes"].items():
@@ -3232,7 +3391,7 @@ def phase_multi(device, root: Path, card: str, trainer: dict) -> dict:
     launches = {label: {k: sum(r["launches"][label][k] for r in res) for k in r0["launches"][label]}
                 for label in r0["launches"]}
     needed = dict(M1=("B1", "B2", "C"), M2=("B1", "B2", "C"), M3=("B1", "B2", "C"), M5=("A",),
-                  M6=("A", "B1", "B2", "C"))
+                  M6=("A", "B1", "B2", "C"), M7=("A", "B1", "B2", "C"), M8=("B1", "B2", "C"))
     missing = [(label, k) for label, ks in needed.items() for k in ks if launches[label][k] <= 0]
     if missing:
         raise AssertionError(f"M: kernels of a part's path were not launched: {missing}")
@@ -3362,10 +3521,12 @@ def main() -> int:
         phase_family_pretrain(device, root, card)
 
         # L, R, Q, H, P: the training entry point's services on phase 13's experiment and set
+        services = {}
         for label, phase in (("L", phase_lr_find), ("R", phase_pruning), ("Q", phase_profilers),
                              ("H", phase_search), ("P", phase_batch_probe)):
             t = time.perf_counter()
-            paths[label] = phase(device, root, trainer["tables"], card)["launches"]
+            services[label] = phase(device, root, trainer["tables"], card)
+            paths[label] = services[label]["launches"]
             seconds[label] = time.perf_counter() - t
         # X. the offline pipelines: data preparation -> training from files -> inference -> result inspection
         t = time.perf_counter()
@@ -3375,7 +3536,7 @@ def main() -> int:
         x_check_shapes(device, x_shapes)
         # M. the multi-rank code: 4 gloo ranks sharing the card
         t = time.perf_counter()
-        paths["M"] = phase_multi(device, root, card, trainer)["launches"]
+        paths["M"] = phase_multi(device, root, card, trainer, services["R"]["runs"])["launches"]
         seconds["M"] = time.perf_counter() - t
         print(f"# launches on each path of this slice, through the kernels (plain runs and checks not "
               f"counted): {json.dumps(paths)}")

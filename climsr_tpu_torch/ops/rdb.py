@@ -409,29 +409,31 @@ def rdb_bwd_reference(
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """Plain backward of one RDB from its saved ``feat``, in explicit conv
     algebra, with the TPU kernel's types (``rdb.py:432-500``): the weights in
-    g's dtype, every product summed in f32, the pre-activation gradients
-    ``dz`` rounded to g's dtype before each conv reads them, slopes from
-    sign(h_k). Returns ``(dx, [dW_1 .. dW_5], [db_1 .. db_5])``; dx in g's
-    dtype, the rest f32 (OIHW weights)."""
+    g's dtype, every product summed in f32 (in f64 for f64 inputs: an exact
+    version to hold the f32 kernel's pixel-wide dW sums against), the
+    pre-activation gradients ``dz`` rounded to g's dtype before each conv
+    reads them, slopes from sign(h_k). Returns ``(dx, [dW_1 .. dW_5], [db_1
+    .. db_5])``; dx in g's dtype, the rest f32 (f64) (OIHW weights)."""
     dt = g.dtype
+    acc = torch.float64 if dt == torch.float64 else torch.float32
     nf, gc = g.shape[1], weights[0][0].shape[0]
-    f = feat.float()
-    ws = [wt.detach().to(dt).float() for wt, _ in weights]
+    f = feat.to(acc)
+    ws = [wt.detach().to(dt).to(acc) for wt, _ in weights]
     grad_in, grad_w = torch.nn.grad.conv2d_input, torch.nn.grad.conv2d_weight
     dws: List[torch.Tensor] = [None] * 5  # type: ignore[list-item]
     dbs: List[torch.Tensor] = [None] * 5  # type: ignore[list-item]
-    dz = (g.float() * gy_scale).to(dt).float()
+    dz = (g.to(acc) * gy_scale).to(dt).to(acc)
     dfeat = grad_in(f.shape, ws[4], dz, padding=1)
     dws[4] = grad_w(f, ws[4].shape, dz, padding=1)
-    dbs[4] = gy_scale * g.float().sum((0, 2, 3))
+    dbs[4] = gy_scale * g.to(acc).sum((0, 2, 3))
     for k in (3, 2, 1, 0):
         lo = nf + k * gc  # h_{k+1}'s channels; also conv k+1's cin
         da = dfeat[:, lo:lo + gc] * torch.where(f[:, lo:lo + gc] > 0, 1.0, 0.2)
         dbs[k] = da.sum((0, 2, 3))
-        dz = da.to(dt).float()
+        dz = da.to(dt).to(acc)
         dfeat[:, :lo] += grad_in((f.shape[0], lo) + tuple(f.shape[2:]), ws[k], dz, padding=1)
         dws[k] = grad_w(f[:, :lo], ws[k].shape, dz, padding=1)
-    dx = (g.float() * gx_scale + dfeat[:, :nf]).to(dt)
+    dx = (g.to(acc) * gx_scale + dfeat[:, :nf]).to(dt)
     return dx, dws, dbs
 
 

@@ -1,6 +1,7 @@
 # -*- coding: utf-8 -*-
 """Rank-side checks of the multi-rank code on the CPU, for
-``tests/test_torch_parallel.py`` and ``tests/test_torch_spatial.py``.
+``tests/test_torch_parallel.py``, ``tests/test_torch_spatial.py`` and
+``tests/test_torch_zero_services.py``.
 
 :func:`main` runs on every rank of a gloo group started by
 ``parallel.launch.spawn("climsr_tpu_torch.parallel.cases:main", 4, {...})``.
@@ -12,8 +13,10 @@ Run in a fresh interpreter, it imports neither JAX nor the tests' conftest.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import os
-from typing import Dict, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +31,7 @@ from climsr_tpu_torch.parallel.mesh import (
     put_global,
     put_replicated,
 )
+from climsr_tpu_torch.training.callbacks import ModelPruningCallback
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -418,9 +422,178 @@ def suite_trainer(inp: Dict[str, np.ndarray], mesh, workdir: str) -> Dict[str, n
     return {}
 
 
+def full_state(trainer) -> Dict[str, torch.Tensor]:
+    """The generator's full parameters, gathered under ZeRO-3, as CPU copies;
+    read only (the shards are left as they are)."""
+    with trainer._materialized([trainer.generator_partition]):
+        return {k: v.detach().cpu().clone() for k, v in trainer.g_model.named_parameters()}
+
+
+def pruned_are_zero(masks: Dict[str, np.ndarray], full: Dict[str, torch.Tensor], part) -> Tuple[bool, bool]:
+    """Whether every position ``masks`` prunes is 0 in the full parameters,
+    and in this rank's shards (the optimizer's leaves)."""
+    def zero(t, m):
+        return bool((t.detach().cpu()[~m] == 0).all())
+
+    in_full = all(zero(full[k], torch.from_numpy(m)) for k, m in masks.items())
+    in_shards = part is None or all(zero(part.shards[k], part.shard_of(k, torch.from_numpy(m)))
+                                    for k, m in masks.items())
+    return in_full, in_shards
+
+
+class RecordedPruning(ModelPruningCallback):
+    """``ModelPruningCallback`` that records, at fit start and at each
+    train-epoch end, the generator's full parameters before and after the
+    pruning, the masks, and whether the positions pruned at the epoch before
+    were still 0 after this epoch's steps (in the full weights and in the
+    shards), into ``record``."""
+
+    def __init__(self, record: List, use_lottery_ticket_hypothesis: bool = False):
+        super().__init__(use_lottery_ticket_hypothesis=use_lottery_ticket_hypothesis)
+        self.record = record
+
+    def on_fit_start(self, trainer) -> None:
+        super().on_fit_start(trainer)
+        self.record.append({"start": full_state(trainer)})
+
+    def on_train_epoch_end(self, trainer, epoch: int) -> None:
+        part = trainer.generator_partition
+        before = full_state(trainer)
+        kept = pruned_are_zero(self._masks, before, part) if self._masks else (True, True)
+        super().on_train_epoch_end(trainer, epoch)
+        after = full_state(trainer)
+        self.record.append(dict(before=before, after=after, masks=dict(self._masks), kept=kept,
+                                pruned=pruned_are_zero(self._masks, after, part), sparsity=self.sparsity))
+
+
+PRUNING_OVERRIDES = TRAIN_OVERRIDES + ["trainer.limit_train_batches=1", "trainer.save_top_k=0",
+                                       "training.run_test_after_fit=false"]
+
+
+@contextlib.contextmanager
+def recorded_pruning(record: List) -> Iterator[None]:
+    """In the block, ``callbacks=[model_pruning]`` and ``[lottery_ticket]``
+    build a :class:`RecordedPruning` that records into ``record``."""
+    from climsr_tpu_torch.training import callbacks
+
+    kept = dict(callbacks.CALLBACK_REGISTRY)
+    callbacks.CALLBACK_REGISTRY.update(model_pruning=lambda: RecordedPruning(record),
+                                       lottery_ticket=lambda: RecordedPruning(record, True))
+    try:
+        yield
+    finally:
+        callbacks.CALLBACK_REGISTRY.update(kept)
+
+
+def pruning_fit(data_path: str, out: str, lottery: bool, extra: List[str] = ()) -> Tuple[List[dict], str]:
+    """``cli.train`` on the CPU with ``callbacks=[model_pruning]`` (or
+    ``[lottery_ticket]``) over :data:`PRUNING_OVERRIDES`, the callback
+    recording (:class:`RecordedPruning`): (the record, the run directory)."""
+    import glob
+
+    from climsr_tpu_torch.cli.train import main
+
+    name = "lottery_ticket" if lottery else "model_pruning"
+    record: List[dict] = []
+    with recorded_pruning(record):
+        main(["--device=cpu", *PRUNING_OVERRIDES, f"datamodule.cfg.data_path={data_path}", f"callbacks=[{name}]",
+              f"training.output_dir={out}", *extra])
+    (run,) = glob.glob(f"{out}/outputs/runs/esrgan/*")
+    return record, run
+
+
+def digest(arrays) -> str:
+    """A sha1 of the arrays' bytes, in order: whether ranks hold the same."""
+    return hashlib.sha1(b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)).hexdigest()
+
+
+def pruning_results(tag: str, record: List[dict], full: bool) -> Dict[str, np.ndarray]:
+    """A pruning record as arrays under ``tag/``: the masks, checks and
+    sparsity of each epoch, a digest of the weights each pruning read, and
+    with ``full`` the weights themselves."""
+    out: Dict[str, np.ndarray] = {}
+    if full:
+        out.update({f"{tag}/start/{k}": v.numpy() for k, v in record[0]["start"].items()})
+    for e, r in enumerate(record[1:]):
+        p = f"{tag}/e{e}"
+        out.update({f"{p}/mask/{k}": m for k, m in r["masks"].items()})
+        out.update({f"{p}/digest": np.asarray(digest(v.numpy() for v in r["before"].values())),
+                    f"{p}/kept": np.asarray(r["kept"]),
+                    f"{p}/pruned": np.asarray(r["pruned"]), f"{p}/sparsity": np.asarray(r["sparsity"])})
+        if full:
+            out.update({f"{p}/before/{k}": v.numpy() for k, v in r["before"].items()})
+            out.update({f"{p}/after/{k}": v.numpy() for k, v in r["after"].items()})
+    return out
+
+
+PROBE_LOCAL_CAPACITY = 3  # the stand-in probe: a rank's slice fits up to 3 samples
+
+
+def stand_in_fits(calls: List):
+    """A ``batch_probe.fits`` stand-in for a device without memory statistics:
+    it runs the step on zero batches of a rank's slice of the global batch,
+    ``ceil(bs / shards)``, as ``fits`` does (where a step is given), and that
+    slice fits where it holds at most :data:`PROBE_LOCAL_CAPACITY` samples;
+    each call is kept in ``calls``."""
+    def fits(step_fn, state, batch_template, bs, headroom, shards=1, reserve_bytes=0, trials=None):
+        local = -(-bs // shards)
+        calls.append((bs, shards, headroom))
+        if step_fn is not None:
+            step_fn(state, {k: torch.zeros((local,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+                            for k, v in batch_template.items()})
+        return local <= PROBE_LOCAL_CAPACITY, 2 * local
+
+    return fits
+
+
+def suite_zero_services(inp: Dict[str, np.ndarray], mesh, workdir: str) -> Dict[str, np.ndarray]:
+    """The Trainer's model-changing callbacks under ZeRO 1-3 and its batch
+    probe over the ranks, through ``cli.train``: ``model_pruning`` and
+    ``lottery_ticket`` at each stage (:func:`pruning_fit`; rank 0 keeps the
+    weights, every rank its masks and checks), then
+    ``trainer.auto_scale_batch_size`` in each mode with :func:`stand_in_fits`
+    for the trials (the batch each rank ends with, and its calls)."""
+    from climsr_tpu_torch.cli.train import main
+    from climsr_tpu_torch.training import batch_probe, loop
+
+    rank = dist.get_rank()
+    data = f"{workdir}/ds"
+    out: Dict[str, np.ndarray] = {}
+    for stage in (1, 2, 3):
+        for lottery in (False, True):
+            tag = f"s{stage}{'lottery' if lottery else 'pruning'}"
+            record, run = pruning_fit(data, f"{workdir}/{tag}", lottery,
+                                      ["trainer.num_devices=4", f"trainer.zero_stage={stage}"])
+            out.update(pruning_results(tag, record, full=rank == 0))
+            out[f"{tag}/run"] = np.asarray(run)
+    calls: List = []
+    kept = batch_probe.fits
+    batch_probe.fits = stand_in_fits(calls)
+    chosen = []
+    init = loop.Trainer.__init__
+
+    def keep(self, *a, **k):
+        init(self, *a, **k)
+        chosen.append(self.dm.cfg.batch_size)
+
+    loop.Trainer.__init__ = keep
+    try:
+        for mode in ("power", "binsearch"):
+            del calls[:]
+            main(["--device=cpu", *TRAIN_OVERRIDES, f"datamodule.cfg.data_path={data}", "trainer.num_devices=4",
+                  f"trainer.auto_scale_batch_size={mode}", "training.run_fit=false",
+                  "training.run_test_after_fit=false", f"training.output_dir={workdir}/probe_{mode}"])
+            out[f"probe_{mode}/batch"] = np.asarray(chosen[-1])
+            out[f"probe_{mode}/calls"] = np.asarray(calls, dtype=np.float64).reshape(-1, 3)
+    finally:
+        batch_probe.fits = kept
+        loop.Trainer.__init__ = init
+    return out
+
+
 SUITES = {"halo": suite_halo, "zero": suite_zero, "gan": suite_gan, "eval": suite_eval, "spatial": suite_spatial,
           "spatial_gan": suite_spatial_gan}
-WITH_WORKDIR = {"inference": suite_inference, "trainer": suite_trainer}
+WITH_WORKDIR = {"inference": suite_inference, "trainer": suite_trainer, "zero_services": suite_zero_services}
 
 
 def main(workdir: str, suites: List[str], axes: List[str] = ("data",), last_axis_size: int = None) -> None:

@@ -20,7 +20,8 @@ with the backend of its choice, and the port takes that group as given.
   shards; 2: gradients reduce-scattered too; 3: parameters kept sharded);
 - :func:`process_local_slice`, :func:`put_global`, :func:`put_replicated`,
   :func:`broadcast_string`: the input helpers; :func:`shard_samples` splits
-  a per-sample function of a batch every rank holds over the ranks.
+  a per-sample function of a batch every rank holds over the ranks;
+  :func:`ranks_sharing_device` counts the ranks that run on one card.
 
 The collectives here (all-reduce, all-gather, reduce-scatter, broadcast) are
 ones that NCCL and gloo both take for CUDA tensors (gloo with torch 2.11 on an
@@ -232,8 +233,7 @@ class ZeroPartition:
         self.shapes = {n: tuple(p.shape) for n, p in self.named}
         self.shards: Dict[str, torch.Tensor] = {}
         for n, p in self.named:
-            d = self.dims[n]
-            self.shards[n] = p if d is None else nn.Parameter(p.detach().chunk(self.size, d)[self.rank].clone())
+            self.shards[n] = p if self.dims[n] is None else nn.Parameter(self.shard_of(n, p.detach()).clone())
         if stage >= 3:
             self.release()
 
@@ -288,7 +288,7 @@ class ZeroPartition:
             _all_reduce_flat(replicated, self.replicated_group)
             for n in sharded:
                 p = self.model.get_parameter(n)
-                self.shards[n].grad = p.grad.chunk(self.size, self.dims[n])[self.rank].clone()
+                self.shards[n].grad = self.shard_of(n, p.grad).clone()
                 p.grad = None
             return
         _all_reduce_flat(replicated, self.replicated_group)
@@ -338,13 +338,19 @@ class ZeroPartition:
                     self.model.get_parameter(n).data = all_gather_dim(
                         self.shards[n].detach(), self.dims[n], self.group, self.size)
 
+    def shard_of(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``t``, a tensor of parameter ``name``'s full
+        shape, cut as the parameter is sharded (``t`` itself where it is not)."""
+        d = self.dims[name]
+        return t if d is None else t.chunk(self.size, d)[self.rank]
+
     @torch.no_grad()
     def reshard(self) -> None:
         """Copy this rank's chunks of the module's (full) parameters into the
         shards, after a load; stage 3 then wants :meth:`release`."""
         for n, p in self.named:
             if self.dims[n] is not None:
-                self.shards[n].copy_(p.chunk(self.size, self.dims[n])[self.rank])
+                self.shards[n].copy_(self.shard_of(n, p))
 
     def release(self) -> None:
         if self.stage >= 3:
@@ -362,7 +368,7 @@ class ZeroPartition:
 
     def shard_optimizer_state(self, state: dict) -> dict:
         """The reverse of :meth:`full_optimizer_state`: this rank's chunks."""
-        return self._map_state(state, lambda t, n: t.chunk(self.size, self.dims[n])[self.rank].clone())
+        return self._map_state(state, lambda t, n: self.shard_of(n, t).clone())
 
     def _map_state(self, state: dict, fn) -> dict:
         names = [n for n, _ in self.named]
@@ -475,3 +481,21 @@ def broadcast_string(s: str, max_len: int = 256) -> str:
     dist.broadcast(buf, 0)
     out = buf.cpu().numpy().tobytes()
     return out[: out.index(0)].decode() if 0 in out else out.decode()
+
+
+def ranks_sharing_device(device) -> int:
+    """The number of ranks of the world that run on this rank's ``device`` of
+    this host: several gloo ranks may share one card, NCCL ranks take one
+    each; 1 on one process."""
+    _, n = world()
+    if n == 1:
+        return 1
+    import socket
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mine = (socket.gethostname(), str(dev))
+    everyone: List[Optional[Tuple[str, str]]] = [None] * n
+    dist.all_gather_object(everyone, mine)
+    return everyone.count(mine)

@@ -13,9 +13,11 @@ TPU it recovers from an out-of-memory error. So a trial is the reference's
 own PL-Tuner semantics: one real train step on zero batches of the trial's
 size, whose peak allocated bytes (``torch.cuda.max_memory_allocated`` from a
 reset just before it, less what was allocated before it) are held against
-``headroom`` of the card's memory, beside what was allocated before and the
-``reserve_bytes`` the caller will add afterwards (the Trainer's device tile
-store). ``torch.cuda.OutOfMemoryError`` is "does not fit", and so is an
+``headroom`` of the memory the process can use (what the card has free,
+``torch.cuda.mem_get_info``, plus what the process holds: the JAX probe's
+``bytes_limit``; what other processes hold on the card is theirs), beside
+what was allocated before and the ``reserve_bytes`` the caller will add
+afterwards (the Trainer's device tile store). ``torch.cuda.OutOfMemoryError`` is "does not fit", and so is an
 error that says the batch is past a size limit (as the JAX probe takes a
 compile error about memory or resources; PyTorch's NHWC nearest upsample
 refuses gradients of 2^31 elements or more, but ESRGAN's head runs it only
@@ -61,17 +63,18 @@ def fits(
 
     Returns (fits, the step's peak bytes above what was allocated before it),
     or None on a device without memory statistics (the CPU). ``trials``, if
-    given, gets one dict per trial (bs, peak_bytes, fits, oom, and the
-    size-limit error's text or None).
+    given, gets one dict per trial (bs, peak_bytes, fits, oom, the size-limit
+    error's text or None, and the usable bytes the headroom was taken of).
     """
     dev = next(iter(batch_template.values())).device
     if dev.type != "cuda":
         return None
     local_bs = -(-bs // max(1, shards))
-    total = torch.cuda.get_device_properties(dev).total_memory
     gc.collect()
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    usable = free + torch.cuda.memory_reserved(dev)
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     batch = None
@@ -95,13 +98,13 @@ def fits(
     gc.collect()
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
-    ok = not oom and limit is None and before + peak + reserve_bytes <= headroom * total
+    ok = not oom and limit is None and before + peak + reserve_bytes <= headroom * usable
     if trials is not None:
-        trials.append(dict(bs=bs, peak_bytes=int(peak), fits=ok, oom=oom, limit=limit))
-    logger.info("auto_scale_batch_size: batch %d %s (step peak %.3f GB%s, limit %.3f GB of %.3f)", bs,
-                "fits" if ok else "does not fit", peak / 1e9,
+        trials.append(dict(bs=bs, peak_bytes=int(peak), fits=ok, oom=oom, limit=limit, usable_bytes=int(usable)))
+    logger.info("auto_scale_batch_size: batch %d %s (step peak %.3f GB%s, limit %.3f GB of %.3f usable, %.3f on the "
+                "card)", bs, "fits" if ok else "does not fit", peak / 1e9,
                 ", out of memory" if oom else f", {limit}" if limit else "",
-                (headroom * total - before - reserve_bytes) / 1e9, total / 1e9)
+                (headroom * usable - before - reserve_bytes) / 1e9, usable / 1e9, total / 1e9)
     return ok, int(peak)
 
 

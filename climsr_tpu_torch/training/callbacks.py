@@ -219,6 +219,15 @@ class ModelPruningCallback:
     version counters: the ESRGAN blocks' packed kernel weights, cached by
     (data pointer, version), are then packed anew, so kernels A, B1 and B2
     never run on unpruned weights.
+
+    Across ranks both hooks read and write the full weights inside the
+    Trainer's ``generator_full_params`` (gathered under ZeRO-3), so every rank
+    takes the same masks from the same weights and the shards take the pruned
+    values. The per-step masks multiply what the next step reads: each
+    sharded parameter's shard (the optimizer's leaf, with the rank's part of
+    the mask) and, at ZeRO stages 0-2, the module's full parameter, which the
+    next forward reads before the shards are published again; a replicated
+    parameter is its own shard and is multiplied once.
     """
 
     def __init__(self, amount: float = 0.5, use_lottery_ticket_hypothesis: bool = False):
@@ -236,16 +245,17 @@ class ModelPruningCallback:
 
     def on_fit_start(self, trainer) -> None:
         if self.use_lottery_ticket_hypothesis:
-            self._initial = {name: p.detach().float().cpu().numpy().copy()
-                             for name, p in self._prunable(trainer.g_model).items()}
+            with trainer.generator_full_params() as model:
+                self._initial = {name: p.detach().float().cpu().numpy().copy()
+                                 for name, p in self._prunable(model).items()}
 
     def on_train_epoch_end(self, trainer, epoch: int) -> None:
         import torch
 
-        prunable = self._prunable(trainer.g_model)
-        if self._masks is None:
-            self._masks = {name: np.ones(tuple(p.shape), dtype=bool) for name, p in prunable.items()}
-        with torch.no_grad():
+        with trainer.generator_full_params() as model, torch.no_grad():
+            prunable = self._prunable(model)
+            if self._masks is None:
+                self._masks = {name: np.ones(tuple(p.shape), dtype=bool) for name, p in prunable.items()}
             for name, p in prunable.items():  # JAX's prune(), leaf by leaf
                 mask = self._masks[name]
                 w = p.detach().float().cpu().numpy()
@@ -261,9 +271,17 @@ class ModelPruningCallback:
                     new = np.where(mask, src, 0.0)
                 self._masks[name] = mask
                 p.copy_(torch.from_numpy(np.ascontiguousarray(new, dtype=np.float32)))
-        self._params = list(prunable.values())
-        self._device_masks = [torch.from_numpy(self._masks[name]).to(p.device, p.dtype)
-                              for name, p in prunable.items()]
+            part = trainer.generator_partition
+            self._params, self._device_masks = [], []
+            for name, p in prunable.items():
+                mask = torch.from_numpy(self._masks[name]).to(p.device, p.dtype)
+                sharded = part is not None and part.is_sharded(name)
+                if sharded:
+                    self._params.append(part.shards[name])
+                    self._device_masks.append(part.shard_of(name, mask).contiguous())
+                if not sharded or part.stage < 3:
+                    self._params.append(p)
+                    self._device_masks.append(mask)
         total = sum(m.size for m in self._masks.values())
         self.sparsity = sum(int((~m).sum()) for m in self._masks.values()) / max(1, total)
         logger.info("Pruned generator to %.1f%% sparsity%s", 100.0 * self.sparsity,

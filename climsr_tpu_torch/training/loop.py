@@ -39,22 +39,23 @@ On the card each ESRGAN train step runs kernels B1, B2 (3 per RRDB each) and
 C (once), and each validation or test batch runs kernel A (3 per RRDB).
 
 ``trainer.auto_scale_batch_size`` runs one real train step per trial batch
-size before the loaders are built (``training/batch_probe.py``); the
+size before the loaders are built (``training/batch_probe.py``; across ranks
+on rank 0 alone, at a rank's slice of each global batch, and broadcast); the
 "advanced" and "pytorch" profilers add a table of device time by kernel over
 epoch 0 (``utils/profiling.py``, ``profile_ops.txt``), and "jax" writes the
-fit's ``torch.profiler`` Chrome trace under ``trainer.profiler_dir``.
-
-Not ported, and raising with their ``ROADMAP.md`` item (queue 1, item 8):
-``auto_scale_batch_size`` across ranks, and the callbacks that change the
-model (pruning) under ZeRO.
+fit's ``torch.profiler`` Chrome trace under ``trainer.profiler_dir``. A
+callback that rewrites the generator (pruning) does so inside
+:meth:`Trainer.generator_full_params`, which holds the full weights under
+every ZeRO stage.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import logging
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -83,12 +84,12 @@ from climsr_tpu_torch.data.pipeline import (
 )
 from climsr_tpu_torch.device import DeviceLike, resolve_device
 from climsr_tpu_torch.models import FUSION_GENERATORS, PRE_UPSCALED_GENERATORS, create_discriminator, create_generator
-from climsr_tpu_torch.parallel.mesh import create_mesh, world
+from climsr_tpu_torch.parallel.mesh import axis_info, broadcast_string, create_mesh, ranks_sharing_device, world
 from climsr_tpu_torch.training.checkpoint import CheckpointManager, load_checkpoint, restore_generator_params
 from climsr_tpu_torch.training.optimizers import build_optimizer
 from climsr_tpu_torch.training.schedules import resolve_momentum_schedule, resolve_schedule
 from climsr_tpu_torch.training.tasks.gan import make_gan_step, make_gan_val_losses
-from climsr_tpu_torch.training.tasks.pretrain import make_eval_step, make_pretrain_step
+from climsr_tpu_torch.training.tasks.pretrain import _local_pretrain_step, make_eval_step, make_pretrain_step
 from climsr_tpu_torch.training.train_state import GANTrainState, TrainState
 from climsr_tpu_torch.utils.logging import MetricLogger
 
@@ -96,23 +97,9 @@ B = consts.batch_items
 T = consts.training
 logger = logging.getLogger(__name__)
 
-_MULTI_GPU = "ROADMAP.md, queue 1, item 8: multi-GPU"
-
-
-def refuse_unported(trainer_cfg: TrainerConfig, callbacks: List) -> None:
-    """Raise for the JAX Trainer's options the port does not carry yet."""
-    tc = trainer_cfg
-    several = world()[1] > 1
-    changes_model = [type(cb).__name__ for cb in callbacks
-                     if any(hasattr(cb, h) for h in ("on_fit_start", "on_train_epoch_end", "on_train_batch_end"))]
-    checks = [
-        (several and bool(tc.auto_scale_batch_size), "trainer.auto_scale_batch_size across ranks", _MULTI_GPU),
-        (several and bool(tc.zero_stage or tc.shard_optimizer_state) and bool(changes_model),
-         f"callbacks that change the model ({', '.join(changes_model)}) under ZeRO", _MULTI_GPU),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet: {item}")
+# auto_scale_batch_size: the share of the memory a process can use that a batch
+# may fill (the JAX probe's headroom), split between the ranks sharing the card
+PROBE_HEADROOM = 0.9
 
 
 class Trainer:
@@ -134,7 +121,6 @@ class Trainer:
     ):
         self.device = resolve_device(device)
         self.callbacks = callbacks or []
-        refuse_unported(trainer_cfg, self.callbacks)
         self.rank = world()[0]
         self.dm = datamodule
         self.generator_cfg = generator_cfg
@@ -405,25 +391,46 @@ class Trainer:
         configured optimizer at a constant lr, runs the plain pixel-loss step
         (no store, no augmentation) once per trial batch on zero batches; the
         peak bytes of each step, beside the tile store the Trainer builds
-        afterwards, are held against 90% of the card's memory, and an
-        out-of-memory error means "does not fit" (``training/batch_probe.py``).
+        afterwards, are held against 90% of the memory the process can use
+        (free on the card plus what it holds), and an out-of-memory error
+        means "does not fit" (``training/batch_probe.py``).
         GAN tasks are declined, as in JAX (the D and VGG graph belongs to the
         task, and no reference experiment tunes it). On the CPU the batch is kept.
-        """
-        from climsr_tpu_torch.training.batch_probe import fits, probe_max_batch_size
 
+        Across ranks rank 0 alone runs the trials, each at a rank's slice of
+        the global batch, ``ceil(bs / data-axis size)``, while the others wait
+        for its batch, which every rank then takes. The ranks that run on one
+        card (gloo ranks sharing it) each get an equal part of that 90%, so
+        the batch fits when they all step at once. The JAX Trainer passes
+        ``shards = mesh.shape["data"] * jax.process_count()``, but its mesh
+        already spans every process's devices; the data axis's size is its
+        value for one process.
+        """
         cfg = self.dm.cfg
-        mode = self.trainer_cfg.auto_scale_batch_size
         if self.is_gan:
             logger.warning("auto_scale_batch_size supports pixel-loss tasks only; keeping batch_size=%d for the "
                            "GAN task", cfg.batch_size)
             return
+        shards = axis_info(self.mesh, "data")[2]
+        headroom = PROBE_HEADROOM / ranks_sharing_device(self.device)
+        new_bs = self._probe_batch_size(shards, headroom) if self.rank == 0 else cfg.batch_size
+        new_bs = int(broadcast_string(str(new_bs)))
+        if new_bs != cfg.batch_size:
+            logger.info("auto_scale_batch_size: %d -> %d", cfg.batch_size, new_bs)
+            cfg.batch_size = new_bs
+
+    def _probe_batch_size(self, shards: int, headroom: float) -> int:
+        """The probe's search on this process (see :meth:`_auto_scale_batch_size`)."""
+        from climsr_tpu_torch.training.batch_probe import fits, probe_max_batch_size
+
+        cfg = self.dm.cfg
+        mode = self.trainer_cfg.auto_scale_batch_size
         gen_kwargs = {k: getattr(self.generator_cfg, k) for k in GENERATOR_KWARGS}
         model = create_generator(self.generator_type, dtype=self.compute_dtype, device=self.device, train=True,
                                  generator=torch.Generator().manual_seed(self.training_cfg.seed), **gen_kwargs)
         opt_cfg = self.optimizers_cfg.get(T.generator_optimizer_key) or OptimizerConfig(lr=self.training_cfg.lr)
         state = TrainState.create(model, build_optimizer(opt_cfg, lambda s: opt_cfg.lr, device=self.device))
-        step = make_pretrain_step(model, self.generator_type, compute_dtype=self.compute_dtype, device=self.device)
+        step = _local_pretrain_step(model, self.generator_type, self.compute_dtype, self.device)
         ds = self.dm.train_dataset
         hr = ds.hr_size
         lr = hr if self.generator_type in PRE_UPSCALED_GENERATORS else ds.lr_size
@@ -435,9 +442,9 @@ class Trainer:
             template[B.mask] = torch.zeros((1, 1, hr, hr), dtype=self.compute_dtype, device=self.device)
         reserve = self._store_bytes()
         try:
-            new_bs = probe_max_batch_size(
+            return probe_max_batch_size(
                 step, state, template, start=cfg.batch_size, mode="power" if mode is True else str(mode),
-                _fits=lambda bs: fits(step, state, template, bs, 0.9, reserve_bytes=reserve,
+                _fits=lambda bs: fits(step, state, template, bs, headroom, shards=shards, reserve_bytes=reserve,
                                       trials=self.batch_trials),
             )
         finally:
@@ -445,9 +452,6 @@ class Trainer:
             gc.collect()
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
-        if new_bs != cfg.batch_size:
-            logger.info("auto_scale_batch_size: %d -> %d", cfg.batch_size, new_bs)
-            cfg.batch_size = new_bs
 
     # -----------------------------------------------------------------------
     def _optimizers(self):
@@ -461,23 +465,36 @@ class Trainer:
             return [self.state.g_partition, self.state.d_partition]
         return [self.state.partition]
 
-    def _materialized(self):
-        """ZeRO-3: the models' parameters gathered for the block (evaluation,
-        checkpoints), released after it."""
-        import contextlib
+    @contextlib.contextmanager
+    def _materialized(self, parts: Optional[List] = None) -> Iterator[None]:
+        """ZeRO-3: the parameters of ``parts`` (every model's by default)
+        gathered for the block (evaluation, checkpoints), released after it."""
+        held = [p for p in (self._partitions() if parts is None else parts) if p is not None]
+        for p in held:
+            p.materialize()
+        try:
+            yield
+        finally:
+            for p in held:
+                p.release()
 
-        @contextlib.contextmanager
-        def ctx():
-            parts = [p for p in self._partitions() if p is not None]
-            for p in parts:
-                p.materialize()
-            try:
-                yield
-            finally:
-                for p in parts:
-                    p.release()
+    @property
+    def generator_partition(self):
+        """The generator's ZeRO partition (None on one rank)."""
+        return self._partitions()[0]
 
-        return ctx()
+    @contextlib.contextmanager
+    def generator_full_params(self) -> Iterator[torch.nn.Module]:
+        """The generator with its full parameters, for a callback that reads or
+        rewrites them (the JAX Trainer's ``_generator_params`` and
+        ``_set_generator_params``): under ZeRO-3 they are gathered from the
+        shards for the block; on leaving it every rank's shards take their
+        part of what the block wrote, and ZeRO-3 releases the full ones."""
+        part = self.generator_partition
+        with self._materialized([part]):
+            yield self.g_model
+            if part is not None:
+                part.reshard()
 
     def _save_checkpoint(self, hp_metric, force: bool = False) -> None:
         """Every rank gathers its shards into the payload; rank 0 writes it."""

@@ -177,6 +177,20 @@ def make_pretrain_step(
     {hr, elevation, mask} tiles; ``store`` ({hr, elevation, mask} tensors on
     the device) takes an index vector for ``batch``. ``device`` (``None``
     means ``cuda``) is where the model must be."""
+    return _pretrain_step(model, generator_type, compute_dtype, augment, augment_seed, store, zero, spatial, device,
+                          lambda part: check_partition("make_pretrain_step", part, zero))
+
+
+def _local_pretrain_step(model: nn.Module, generator_type: str, compute_dtype: torch.dtype, device: DeviceLike):
+    """The batch probe's throwaway step: a state made without a mesh, run on
+    this rank alone in a world of several ranks (``make_pretrain_step``
+    refuses such a state there)."""
+    return _pretrain_step(model, generator_type, compute_dtype, None, 0, None, None, None, device, lambda part: None)
+
+
+def _pretrain_step(model, generator_type, compute_dtype, augment, augment_seed, store, zero, spatial, device,
+                   check: Callable) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """:func:`make_pretrain_step`'s step, ``check(partition)`` at each call."""
     check_parallel_options("make_pretrain_step", zero, spatial)
     check_device(model, device)
     loss_fn = pixel_loss_fn(generator_type)
@@ -185,7 +199,7 @@ def make_pretrain_step(
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         part = state.partition
-        check_partition("make_pretrain_step", part, zero)
+        check(part)
         batch = prepare_batch(batch, state.step, generator_type, augment, augment_seed, store,
                               mesh=None if part is None else part.mesh)
         state.optimizer.zero_grad()

@@ -12,6 +12,8 @@ the survivors to the fit-start values; biases are never pruned nor rewound.
 The in-place writes bump the parameters' versions, so a block's cached
 kernel packing is redone.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -40,8 +42,16 @@ class _JaxTrainer:
 
 
 class _PortTrainer:
+    """One process: the generator's parameters are its own full ones."""
+
+    generator_partition = None
+
     def __init__(self, model):
         self.g_model = model
+
+    @contextlib.contextmanager
+    def generator_full_params(self):
+        yield self.g_model
 
 
 def _tree_to_torch(tree):

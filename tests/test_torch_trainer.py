@@ -306,31 +306,36 @@ def test_gan_fine_tune_through_the_trainer(tiny_world, tmp_path):
 
 
 def test_unported_options_raise_naming_their_roadmap_item(tiny_world, tmp_path, monkeypatch):
-    """What item 8 leaves (across ranks: auto_scale_batch_size, and the
-    pruning callbacks under ZeRO) raises, naming it; the multi-GPU options
-    (num_devices, ZeRO, spatial sharding), the options of item 9 and the
-    callbacks of item 11 (auto_scale_batch_size, the jax/advanced/pytorch
-    profilers, the pruning callbacks, log_images, the search, the LR range
-    test) compose and build. On one process ``trainer.num_devices=2`` names
-    the ranks it wants."""
-    from climsr_tpu_torch.config.schemas import TrainerConfig
+    """No option of the JAX Trainer raises as unported any more: what item 8
+    refused across ranks (auto_scale_batch_size, and the pruning callbacks
+    under ZeRO) builds and runs with the world the Trainer reads patched to
+    4 ranks (``tests/test_torch_zero_services.py`` runs them on 4 real ones);
+    the multi-GPU options (num_devices, ZeRO, spatial sharding), the options
+    of item 9 and the callbacks of item 11 (auto_scale_batch_size, the
+    jax/advanced/pytorch profilers, the pruning callbacks, log_images, the
+    search, the LR range test) compose and build. On one process
+    ``trainer.num_devices=2`` names the ranks it wants."""
     from climsr_tpu_torch.training import loop, lr_finder
     from climsr_tpu_torch.training.callbacks import LogImagesCallback, ModelPruningCallback, build_callbacks
-    from climsr_tpu_torch.training.loop import refuse_unported
 
-    pruning = build_callbacks(["model_pruning"])
-    for kw, cbs in ((dict(num_devices=2), []), (dict(zero_stage=2), []), (dict(spatial_shard_size=2), []),
-                    (dict(auto_scale_batch_size=True), []), (dict(profiler="jax"), []),
-                    (dict(profiler="advanced"), []), (dict(zero_stage=2), pruning)):
-        refuse_unported(TrainerConfig(**kw), cbs)  # one process
+    assert not hasattr(loop, "refuse_unported")
+    built = []
+    init = loop.Trainer.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        built.append((type(self.callbacks[0]).__name__, self.callbacks[0].use_lottery_ticket_hypothesis,
+                      self.trainer_cfg.auto_scale_batch_size))
+
+    monkeypatch.setattr(loop.Trainer, "__init__", spy)
     monkeypatch.setattr(loop, "world", lambda: (0, 4))  # four ranks
-    refuse_unported(TrainerConfig(num_devices=4, zero_stage=3, spatial_shard_size=2), [])
-    for kw, cbs in ((dict(auto_scale_batch_size=True), []), (dict(zero_stage=1), pruning),
-                    (dict(shard_optimizer_state=True), pruning)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            refuse_unported(TrainerConfig(**kw), cbs)
+    for i, extra in enumerate((["trainer.auto_scale_batch_size=power", "trainer.zero_stage=1",
+                                "callbacks=[model_pruning]"],
+                               ["trainer.shard_optimizer_state=true", "callbacks=[lottery_ticket]"])):
+        assert np.isfinite(_cli(tiny_world, tmp_path / f"ranks{i}", *extra, "trainer.limit_train_batches=1",
+                                "training.run_test_after_fit=false"))
     monkeypatch.undo()
-    refuse_unported(TrainerConfig(num_devices=1, profiler="simple"), [])
+    assert built == [("ModelPruningCallback", False, "power"), ("ModelPruningCallback", True, False)]
     from climsr_tpu_torch.parallel.mesh import create_mesh
 
     with pytest.raises(ValueError, match="the process group has 1 ranks"):
