@@ -238,6 +238,19 @@ M. the multi-rank code: ``parallel.launch.spawn`` starts 4 ranks (fresh
    rank), each best ``.ckpt`` loaded in one rank with ``strict=True``. Each
    part's launches are counted from 0 on every rank; every launch's shape is
    recorded and A, B1, B2 and C are checked at them after the phase,
+O. the JAX package's orbax checkpoint (``tests/fixtures/jax_orbax_ckpt.tar``,
+   a JAX Trainer's checkpoints at nf=64, nb=1, gc=16 with SGD, unpacked into a
+   temporary directory) read with the port's own zstd, OCDBT and zarr
+   readers: O1 the tree read whole (seconds and MB/s on this host's CPU);
+   O2 the generator strictly loaded against the JAX output on the record's 2
+   seeded 32x32 tiles (``tests/fixtures/jax_orbax_record.npz``; f32 and bf16),
+   then ``cli.inference`` from the checkpoint directory over 2 whole-globe
+   months (360x720 -> 1440x2880) through kernel A, against the same sweep
+   through the plain RDB; O3 the f32 pre-training step's loss on the record's
+   batch from the loaded state against the JAX step's, then ``cli.train``
+   with ``trainer.resume_from_checkpoint`` on phase 13's set, resuming at the
+   JAX step for 2 steps through B1, B2 and C; every launch's shape recorded
+   and A, B1, B2, C checked against their plain versions after the phase,
 14. one JSON line with every kernel (the launches of A, B1, B2 and C are
    phase 13's, and A's times, bound and error are per launch over phase 13's
    eval shapes, from phase 3), the card line, then the device line as the
@@ -3403,6 +3416,168 @@ def phase_multi(device, root: Path, card: str, trainer: dict, pruning: dict) -> 
     return dict(launches=launches)
 
 
+O_MONTHS, O_GLOBE_LR = 2, (360, 720)  # phase O's whole-globe months
+O_GEN = dict(nf=64, nb=1, gc=16, in_channels=3, out_channels=1)  # the fixture's generator
+O_F32_TOL = 1e-4  # the card's f32 generator and loss against the JAX CPU record, relative to max |ref|
+
+
+def o_record_inputs() -> dict:
+    """The record's inputs, from seed 0 (as ``tests/test_torch_orbax.py`` makes them)."""
+    rng = np.random.default_rng(0)
+    tiles = (rng.normal(size=(2, 32, 32, 3)).astype(np.float32), rng.normal(size=(2, 128, 128, 1)).astype(np.float32),
+             (rng.random((2, 128, 128, 1)) > 0.3).astype(np.float32))
+    batch = {"lr": rng.normal(size=(2, 32, 32, 3)).astype(np.float32),
+             "hr": rng.normal(size=(2, 128, 128, 1)).astype(np.float32),
+             "elevation": rng.normal(size=(2, 128, 128, 1)).astype(np.float32),
+             "mask": (rng.random((2, 128, 128, 1)) > 0.3).astype(np.float32)}
+    return {"tiles": tiles, "batch": batch}
+
+
+def o_host() -> str:
+    """This host's name and CPU model (the reader runs on the CPU)."""
+    import platform
+
+    model = "unknown CPU"
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    return f"{platform.node()}, {model}, {os.cpu_count()} CPUs"
+
+
+def phase_orbax(device, root: Path, tables: dict, card: str) -> dict:
+    """O: a JAX orbax checkpoint read, swept and resumed through the entry points."""
+    import tarfile
+
+    from climsr_tpu_torch.cli.inference import main as inference_main
+    from climsr_tpu_torch.data.tables import Table, write_feather
+    from climsr_tpu_torch.interop.orbax import restore_pytree
+    from climsr_tpu_torch.interop.params import load_generator_checkpoint
+    from climsr_tpu_torch.io.netcdf import read_climate_series
+    from climsr_tpu_torch.models import create_generator
+    from climsr_tpu_torch.ops.pack12 import MAX_ABS_ERR
+    from climsr_tpu_torch.training.checkpoint import load_checkpoint
+    from climsr_tpu_torch.training.optimizers import build_optimizer
+    from climsr_tpu_torch.config.schemas import OptimizerConfig
+    from climsr_tpu_torch.training.tasks.pretrain import make_pretrain_step
+    from climsr_tpu_torch.training.train_state import TrainState
+
+    here = Path(__file__).resolve().parent / "tests" / "fixtures"
+    record = np.load(here / "jax_orbax_record.npz")
+    with tarfile.open(here / "jax_orbax_ckpt.tar") as tar:
+        tar.extractall(root / "o", filter="data")
+    ckpt = root / "o" / "checkpoints"
+    counters = kernel_counters()
+    launches, failed = {}, []
+
+    # O1: the whole tree, on the host
+    t = time.perf_counter()
+    tree = restore_pytree(ckpt)
+    read_s = time.perf_counter() - t
+    nbytes = du(ckpt)
+    sd = load_generator_checkpoint(ckpt)
+    print(f"# O1 orbax checkpoint read whole: {nbytes / 1e6:.3f} MB on disk, {sum(v.numel() for v in sd.values())} "
+          f"generator parameters, step {int(tree['step'])}, in {read_s:.3f} s = {nbytes / 1e6 / read_s:.3f} MB/s on "
+          f"the host ({o_host()})")
+
+    # O2: the generator against the JAX record, then cli.inference from the directory
+    x, elev, mask = (torch.from_numpy(a).permute(0, 3, 1, 2) for a in o_record_inputs()["tiles"])
+    want = torch.from_numpy(record["jax_out"]).permute(0, 3, 1, 2)
+    for dtype, tol in ((torch.float32, O_F32_TOL), (torch.bfloat16, GENERATOR_TOL[torch.bfloat16])):
+        gen = create_generator("esrgan", dtype=dtype, device=device, **O_GEN)
+        gen.load_state_dict(sd, strict=True)
+        args = [a.to(device, dtype).contiguous(memory_format=torch.channels_last) for a in (x, elev, mask)]
+        with torch.inference_mode():
+            got = gen(*args).float().cpu()
+        _, rel = rel_err(got, want)
+        print(f"# O2 generator from the checkpoint on the record's 2 tiles, {str(dtype)[6:]}: relative err vs the "
+              f"JAX output {rel:.3e} (tol {tol:g})")
+        if not (rel <= tol):
+            failed.append(f"O2 generator {dtype}")
+    globe = root / "o_globe"
+    globe.mkdir()
+    make_globe(globe, O_MONTHS, *O_GLOBE_LR)
+    gmin, gmax = -3.0, 25.0
+    write_feather(Table({"dataset": ["cru-ts", "world-clim"], "variable": ["tmp", "tmp"],
+                         "filename": ["tmp_2001-01.tif"] * 2, "min": [1.0, 0.0], "max": [20.0, 1.0],
+                         "global_min": [gmin, 0.0], "global_max": [gmax, 1.0]}), globe / "min_max.feather")
+    write_feather(Table({"variable": ["tmp"], "mean": [10.0], "std": [5.0]}), globe / "zscore.feather")
+    common = [f"inference.pretrained_model={ckpt}", "inference.generator_type=esrgan",
+              "inference.use_netcdf_datasets=true", f"inference.ds_path={globe / 'cru_ts4.05.1901.2020.tmp.dat.nc'}",
+              f"inference.elevation_file={globe / 'elevation.tif'}", f"inference.land_mask_file={globe / 'land_mask.tif'}",
+              f"inference.min_max_lookup={globe / 'min_max.feather'}", f"inference.zscore_lookup={globe / 'zscore.feather'}",
+              "inference.cruts_variable=tmp", *[f"generator.{k}={v}" for k, v in O_GEN.items()]]
+
+    def sweep(tag):
+        inference_main(common + [f"inference.inference_out_path={root / f'o_sr_{tag}'}",
+                                 f"inference.extent_out_path_sr_nc={root / f'o_nc_{tag}'}"], device=device)
+        (nc,) = (root / f"o_nc_{tag}").glob("*.tmp.dat.nc")
+        return read_climate_series(nc, "tmp").data
+
+    zero_counts(counters)
+    t = time.perf_counter()
+    sr = sweep("kernel")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches["sweep"] = counts(counters)
+    with plain_rdb():
+        ref = sweep("plain")
+    land = np.isfinite(ref)
+    lr = read_climate_series(globe / "cru_ts4.05.1901.2020.tmp.dat.nc", "tmp").data
+    half = (np.nanmax(lr, axis=(1, 2)) - np.nanmin(lr, axis=(1, 2))) / 2  # each month's own min-max scaling
+    err = max(float(np.max(np.abs(sr[m][land[m]] - ref[m][land[m]]))) / half[m] for m in range(O_MONTHS))
+    tol = 2 * MAX_ABS_ERR + GENERATOR_TOL[torch.bfloat16]
+    print(f"# O2 cli.inference from the orbax directory: {O_MONTHS} months {O_GLOBE_LR} -> {sr.shape[1:]} in {wall:.3f} s "
+          f"({O_MONTHS / wall:.4f} months/s, load and NetCDF included); worst normalized |kernel - plain| {err:.3e} "
+          f"(tol {tol:.3e}); NaN pattern equal: {bool(np.array_equal(np.isnan(sr), ~land))}; launches "
+          f"{launches['sweep']} ({card})")
+    if sr.shape != (O_MONTHS, 4 * O_GLOBE_LR[0], 4 * O_GLOBE_LR[1]) or not (err <= tol) or not np.array_equal(np.isnan(sr), ~land):
+        failed.append("O2 sweep")
+    if device.type == "cuda" and launches["sweep"]["A"] <= 0:
+        failed.append("O2 sweep: no A launch")
+
+    # O3: the loaded state's f32 step on the record's batch, then cli.train resuming at the JAX step
+    payload = load_checkpoint(ckpt, map_location=device)
+    model = create_generator("esrgan", dtype=torch.float32, device=device, train=True, **O_GEN)
+    model.load_state_dict({k[len("generator."):]: v for k, v in payload["state_dict"].items()}, strict=True)
+    opt = build_optimizer(OptimizerConfig(name="sgd", lr=1e-4, weight_decay=0.0), lambda s: 1e-4, device=device)
+    state = TrainState.create(model, opt)
+    state.optimizer.load_state_dict(payload["optimizer_states"][0])
+    step = make_pretrain_step(model, "esrgan", compute_dtype=torch.float32, device=device)
+    batch = {k: torch.from_numpy(v).permute(0, 3, 1, 2).to(device).contiguous(memory_format=torch.channels_last)
+             for k, v in o_record_inputs()["batch"].items()}
+    _, metrics = step(state, batch)
+    loss, want_loss = float(metrics["train/loss"]), float(record["loss"])
+    print(f"# O3 f32 pre-training step from the checkpoint on the record's batch: loss {loss:.8f}, JAX {want_loss:.8f}, "
+          f"relative err {abs(loss - want_loss) / abs(want_loss):.3e} (tol {O_F32_TOL:g})")
+    if not (abs(loss - want_loss) <= O_F32_TOL * abs(want_loss)):
+        failed.append("O3 loss")
+    saved = int(payload["global_step"])
+    r = fit_entry_point(device, root, "o_resume", [
+        "experiment=esrgan_pre_training", f"datamodule.cfg.data_path={root / 'ds'}",
+        *[f"generator.{k}={v}" for k, v in O_GEN.items()],
+        "optimizers.generator_optimizer.name=sgd", "optimizers.generator_optimizer.weight_decay=0",
+        f"trainer.resume_from_checkpoint={ckpt}", "trainer.max_epochs=1", "trainer.limit_train_batches=2",
+        "trainer.limit_val_batches=1", "training.run_test_after_fit=false"], tables)
+    launches["resume"] = r["launches"]
+    steps = [int(x["step"]) for x in r["train"]]
+    losses = [x["train/loss"] for x in r["train"]]
+    print(f"# O3 cli.train resumed from the orbax directory at step {saved}: steps {steps}, train/loss "
+          f"{['%.6f' % v for v in losses]}, Trainer at step {r['trainer'].global_step}, {r['wall']:.3f} s; launches "
+          f"{r['launches']} ({card})")
+    per_step = dict(B1=3 * O_GEN["nb"] * len(steps), B2=3 * O_GEN["nb"] * len(steps), C=len(steps))
+    if steps != [saved + 1, saved + 2] or r["trainer"].global_step != saved + 2 or not np.isfinite(losses).all():
+        failed.append("O3 resume")
+    if device.type == "cuda" and any(r["launches"][k] != v for k, v in per_step.items()):
+        failed.append(f"O3 resume: expected {per_step}, counted {r['launches']}")
+    if failed:
+        raise AssertionError(f"phase O: {failed}")
+    return dict(read_s=read_s, mb_per_s=nbytes / 1e6 / read_s, launches={k: sum(v[k] for v in launches.values())
+                                                                          for k in counters})
+
+
 def du(path: Path) -> int:
     return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
 
@@ -3538,6 +3713,12 @@ def main() -> int:
         t = time.perf_counter()
         paths["M"] = phase_multi(device, root, card, trainer, services["R"]["runs"])["launches"]
         seconds["M"] = time.perf_counter() - t
+        # O. the JAX package's orbax checkpoint: read, swept, resumed
+        t = time.perf_counter()
+        with recorded_shapes() as o_shapes:
+            paths["O"] = phase_orbax(device, root, trainer["tables"], card)["launches"]
+        seconds["O"] = time.perf_counter() - t
+        x_check_shapes(device, o_shapes, "O")
         print(f"# launches on each path of this slice, through the kernels (plain runs and checks not "
               f"counted): {json.dumps(paths)}")
         print(f"# seconds by phase of this slice: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))

@@ -18,7 +18,13 @@
   file) and strip the ``generator.`` / ``discriminator.`` prefix, so the result
   loads into the port's modules with ``strict=True``. For ``drln`` the
   reference's dead compressor ``c4.body.*`` (never applied in its forward,
-  and not made by the port, as by the JAX package) is dropped.
+  and not made by the port, as by the JAX package) is dropped. A directory
+  is the port's checkpoint directory (its latest ``.ckpt``) or an orbax
+  checkpoint of the JAX package (:mod:`climsr_tpu_torch.interop.orbax`),
+  whose generator tree goes through :func:`state_dict_from_flax`.
+- :func:`payload_from_jax_state` turns a restored JAX ``TrainState`` or
+  ``GANTrainState`` tree into the port's checkpoint dict (the layout of
+  ``training/checkpoint.py``), optimizer states included.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from climsr_tpu_torch.interop import orbax
 
 logger = logging.getLogger(__name__)
 
@@ -230,12 +238,6 @@ def vgg_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
 def _read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
     """The tensors of a PL ``.ckpt`` or a saved ``state_dict``, on the CPU."""
     p = Path(path)
-    if p.is_dir():
-        raise NotImplementedError(
-            f"{p} is a directory (an orbax checkpoint); the port reads PyTorch checkpoint files only. "
-            "Reading orbax checkpoints needs tensorstore and JAX and is left out of the port "
-            "(ROADMAP.md, queue 1, item 12); carry JAX params over with state_dict_from_flax"
-        )
     try:
         ckpt = torch.load(p, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError:
@@ -248,12 +250,24 @@ def _read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
 
 
 def load_generator_checkpoint(path: Union[str, Path], generator_type: Optional[str] = None) -> Dict[str, torch.Tensor]:
-    """A reference PL ``.ckpt`` (or a plain saved ``state_dict``) -> the
-    generator's ``state_dict`` on the CPU, with the ``generator.`` prefix
-    stripped. A directory (an orbax checkpoint of the JAX package) raises.
-    With ``generator_type="drln"`` the reference's dead ``c4.body.*`` (a
+    """A reference PL ``.ckpt`` (or a plain saved ``state_dict``), the port's
+    checkpoint directory or a JAX orbax checkpoint -> the generator's
+    ``state_dict`` on the CPU, with the ``generator.`` prefix stripped. From
+    an orbax checkpoint only the generator's subtree is read (``params``, else
+    ``g_params``, else the whole tree: ``climsr_tpu/training/checkpoint.py:97-114``);
+    ``generator_type`` defaults to the family its keys show. With
+    ``generator_type="drln"`` the reference's dead ``c4.body.*`` (a
     compressor its forward never applies, which the port does not make) is
     dropped, so the rest loads with ``strict=True``."""
+    if Path(path).is_dir():
+        from climsr_tpu_torch.training.checkpoint import checkpoint_file
+
+        path = checkpoint_file(path)
+        if path.is_dir():
+            top = orbax.top_level_keys(path)
+            key = "params" if "params" in top else "g_params" if "g_params" in top else None
+            tree = orbax.restore_pytree(path, select=key)
+            return state_dict_from_flax(generator_type or generator_type_of(tree), tree)
     sd = _read_state_dict(path)
     gen = {k[len(GENERATOR_PREFIX):]: v for k, v in sd.items() if k.startswith(GENERATOR_PREFIX)}
     if not gen and not any(k.startswith(DISCRIMINATOR_PREFIX) for k in sd):
@@ -271,3 +285,134 @@ def load_discriminator_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Ten
     if not disc:
         raise KeyError(f"{path} holds no '{DISCRIMINATOR_PREFIX}' weights (not a GAN checkpoint)")
     return disc
+
+
+# ---- JAX train states ---------------------------------------------------------
+
+def generator_type_of(params: dict) -> str:
+    """The generator family of a JAX param tree, from its top-level names."""
+    if "RRDB_trunk_0" in params:
+        return "esrgan"
+    if "trunk_a_0" in params or "trunk_rfb_0" in params or "RFB" in params:
+        return "rfb_esrgan"
+    if "group_0" in params:
+        return "rcan"
+    if "b1" in params and "upsample" in params:
+        return "drln"
+    if set(params) == {"conv1", "conv2", "conv3"}:
+        return "srcnn"
+    raise ValueError(f"no generator family has the top-level params {sorted(params)}")
+
+
+def _discriminator_sd(params: dict, batch_stats: Optional[dict]) -> Dict[str, torch.Tensor]:
+    """Either discriminator's ``state_dict``; without ``batch_stats`` (an
+    optimizer moment's tree) the BatchNorm statistics are zeros."""
+    rfb = "bn1" in params
+    if batch_stats is None:
+        batch_stats = {k: {"mean": np.zeros_like(v["scale"]), "var": np.zeros_like(v["scale"])}
+                       for k, v in params.items() if isinstance(v, dict) and "scale" in v}
+    return (rfb_discriminator_state_dict_from_flax if rfb else discriminator_state_dict_from_flax)(params, batch_stats)
+
+
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _param_list(to_sd, tree) -> List[torch.Tensor]:
+    """A param-shaped tree (params or an optimizer moment) as the port's
+    parameters in ``named_parameters`` order (the order of the mappings)."""
+    return [v for k, v in to_sd(tree).items() if not k.endswith(_BUFFERS)]
+
+
+def _components(state) -> List[dict]:
+    """The leaf transforms of an optax state: a chain's list flattened,
+    ``inject_hyperparams``' inner state taken with its count."""
+    if state is None or state == () or state == []:
+        return []
+    if isinstance(state, list):
+        return [c for s in state for c in _components(s)]
+    if isinstance(state, dict) and "inner_state" in state and "hyperparams" in state:
+        return [{"count": state["count"]}] + _components(state["inner_state"])
+    return [state]
+
+
+def _optimizer_state(opt_state, to_sd, n: int, step: int) -> dict:
+    """An optax state (the chains of ``climsr_tpu/training/optimizers.py:70-143``)
+    -> ``ScheduledOptimizer.state_dict()``: the inner torch optimizer's
+    per-parameter state, moments laid out as their parameters, and the
+    chain's counters. optax's adam and adamax states look alike; the
+    optimizer that loads the state tells them apart (``from_jax``)."""
+    chain = {"updates": None, "mini_step": 0, "acc": None}
+    if isinstance(opt_state, dict) and "inner_opt_state" in opt_state:  # optax.MultiSteps
+        chain["mini_step"] = int(opt_state["mini_step"])
+        if chain["mini_step"]:
+            chain["acc"] = _param_list(to_sd, opt_state["acc_grads"])
+        chain["updates"] = int(opt_state["gradient_step"])
+        opt_state = opt_state["inner_opt_state"]
+    per_param: Dict[str, List[torch.Tensor]] = {}
+    kind, count = "sgd", None
+    for c in _components(opt_state):
+        keys = set(c)
+        if keys == {"count"}:
+            count = int(c["count"])  # scale_by_learning_rate / inject_hyperparams: the schedule's step
+        elif keys == {"count", "mu", "nu"}:
+            kind = "adam"
+            per_param["exp_avg"], per_param["exp_avg_sq"] = _param_list(to_sd, c["mu"]), _param_list(to_sd, c["nu"])
+            per_param["step"] = [torch.tensor(float(int(c["count"]))) for _ in per_param["exp_avg"]]  # stepped in place
+        elif keys == {"e_g", "e_x"}:
+            kind = "adadelta"
+            per_param["square_avg"], per_param["acc_delta"] = _param_list(to_sd, c["e_g"]), _param_list(to_sd, c["e_x"])
+        elif keys == {"sum_of_squares"}:
+            kind = "adagrad"
+            per_param["sum_of_squares"] = _param_list(to_sd, c["sum_of_squares"])
+        elif keys == {"nu"}:
+            kind = "rmsprop"
+            per_param["nu"] = _param_list(to_sd, c["nu"])
+        elif keys == {"trace"}:
+            per_param["trace"] = _param_list(to_sd, c["trace"])
+        elif keys == {"step_sizes", "prev_grads"}:
+            kind = "rprop"
+            per_param["step_sizes"] = _param_list(to_sd, c["step_sizes"])
+            per_param["prev_grads"] = _param_list(to_sd, c["prev_grads"])
+        else:
+            raise ValueError(f"an optax state with the fields {sorted(keys)} has no port counterpart")
+    if chain["updates"] is None:
+        chain["updates"] = count if count is not None else step
+    if "trace" in per_param and kind == "sgd":
+        per_param["momentum_buffer"] = per_param.pop("trace")
+    if any(len(v) != n for v in per_param.values()):
+        raise ValueError(f"an optimizer state holds {sorted({len(v) for v in per_param.values()})} tensors, "
+                         f"the parameters are {n}")
+    if kind == "adadelta":
+        per_param["step"] = [torch.tensor(float(chain["updates"])) for _ in range(n)]
+    chain["from_jax"] = kind
+    return {"state": {i: {k: v[i] for k, v in per_param.items()} for i in range(n)},
+            "param_groups": [{"params": list(range(n))}], "chain": chain}
+
+
+def payload_from_jax_state(tree: dict, generator_type: Optional[str] = None) -> dict:
+    """A restored JAX ``TrainState`` (``step``, ``params``, ``opt_state``) or
+    ``GANTrainState`` (``g_params``, ``g_opt_state``, ``d_params``,
+    ``d_opt_state``, ``d_batch_stats``; ``climsr_tpu/training/train_state.py``)
+    -> the port's checkpoint dict (``training/checkpoint.py``): ``state_dict``
+    with ``generator.`` / ``discriminator.`` prefixes (BatchNorm statistics
+    from ``d_batch_stats``), ``optimizer_states`` (generator first; each
+    ``ScheduledOptimizer.state_dict()`` with ``param_groups`` holding only
+    their parameters, so the loading optimizer keeps its own settings),
+    ``lr_schedulers``, ``global_step`` (the JAX step) and ``epoch`` 0."""
+    gan = "g_params" in tree
+    g_params = tree["g_params" if gan else "params"]
+    gtype = generator_type or generator_type_of(g_params)
+    step = int(tree["step"])
+    g_sd = state_dict_from_flax(gtype, g_params)
+    sd = {f"{GENERATOR_PREFIX}{k}": v for k, v in g_sd.items()}
+    states = [_optimizer_state(tree["g_opt_state" if gan else "opt_state"],
+                               lambda t: state_dict_from_flax(gtype, t), len(g_sd), step)]
+    if gan:
+        if tree.get("d_batch_stats") is None:
+            raise ValueError("a GANTrainState without d_batch_stats: both discriminators hold BatchNorm statistics")
+        d_sd = _discriminator_sd(tree["d_params"], tree["d_batch_stats"])
+        sd.update({f"{DISCRIMINATOR_PREFIX}{k}": v for k, v in d_sd.items()})
+        n_d = sum(not k.endswith(_BUFFERS) for k in d_sd)
+        states.append(_optimizer_state(tree["d_opt_state"], lambda t: _discriminator_sd(t, None), n_d, step))
+    return {"epoch": 0, "global_step": step, "state_dict": sd, "optimizer_states": states,
+            "lr_schedulers": [{"last_epoch": st["chain"]["updates"]} for st in states], "hyper_parameters": {}}

@@ -12,10 +12,12 @@ has neither, so the port reads and writes the format itself:
 - the column types the JAX package's tables hold: ``utf8``, ``large_utf8``,
   ``int32``, ``int64``, ``float32``, ``float64``, ``bool`` (bit-packed) and
   ``null``, each with a validity bitmap where it has nulls;
-- bodies uncompressed or ``LZ4_FRAME``-compressed (pyarrow's default for
-  ``to_feather`` where it has the codec): every buffer is then an int64
-  uncompressed length (``-1``: stored raw) and an LZ4 frame, decoded here
-  in pure Python. ``ZSTD`` raises a ``ValueError`` naming the codec.
+- bodies uncompressed, ``LZ4_FRAME``-compressed (pyarrow's default for
+  ``to_feather`` where it has the codec) or ``ZSTD``-compressed: every
+  buffer is then an int64 uncompressed length (``-1``: stored raw) and an
+  LZ4 frame or a zstd frame, decoded here in pure Python (zstd by
+  :mod:`climsr_tpu_torch.io.zstd`). Another codec raises a ``ValueError``
+  naming it.
 
 Nulls read as pandas reads them: ``None`` in a string, bool or null column,
 NaN in a float column, and an int column with nulls becomes float64 with NaN.
@@ -31,6 +33,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from climsr_tpu_torch.io import zstd
 
 _MAGIC = b"ARROW1"
 _CONTINUATION = 0xFFFFFFFF
@@ -357,8 +361,8 @@ def _batch(buf: memoryview, message: _Table, body: int, fields: List[_Table]) ->
     specs = batch.structs(2, "qq")
     compression = batch.table(3)
     codec = None if compression is None else compression.scalar(0, "b")
-    if codec is not None and codec != 0:
-        raise ValueError(f"feather body compressed with {_CODECS.get(codec, codec)}: only LZ4_FRAME is read")
+    if codec is not None and codec not in _CODECS:
+        raise ValueError(f"feather body compressed with codec {codec}: LZ4_FRAME and ZSTD are read")
 
     def buffer(k: int) -> bytes:
         off, size = specs[k]
@@ -366,7 +370,12 @@ def _batch(buf: memoryview, message: _Table, body: int, fields: List[_Table]) ->
         if codec is None or size == 0:
             return raw
         (n,) = struct.unpack_from("<q", raw, 0)
-        return raw[8:] if n == -1 else lz4_frame_decompress(raw[8:])
+        if n == -1:
+            return raw[8:]
+        out = (lz4_frame_decompress if codec == 0 else zstd.decompress)(raw[8:])
+        if len(out) != n:
+            raise ValueError(f"feather {_CODECS[codec]} buffer of {len(out)} bytes, its header says {n}")
+        return out
 
     cols, k = {}, 0
     for field, (n, null_count) in zip(fields, nodes):

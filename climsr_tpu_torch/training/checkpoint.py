@@ -23,9 +23,14 @@ Only tensors, numbers, strings and containers go in, so the files load with
 ``index.json`` (step -> file, hp_metric) sit beside them. ``save_top_k`` > 0
 keeps the k best by hp_metric (mode min); 0 saves nothing unless forced (the
 preemption save); -1 keeps everything. A checkpoint saved without a metric is
-never evicted. Reading the JAX package's orbax directories needs tensorstore
-and JAX, so it stays out of the port (``ROADMAP.md``); its params carry over
-with ``interop.params.state_dict_from_flax``.
+never evicted.
+
+The JAX package's orbax checkpoints are read too (``interop/orbax.py``,
+without orbax, tensorstore or JAX): :func:`restore_pytree` and
+:func:`extract_generator_params` are the JAX module's, and
+:func:`load_checkpoint` turns an orbax directory into the dict above
+(``interop.params.payload_from_jax_state``), so a run trained on the TPU
+resumes, fine-tunes and sweeps here through the same callers.
 """
 from __future__ import annotations
 
@@ -37,7 +42,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from climsr_tpu_torch.interop.params import load_generator_checkpoint
+from climsr_tpu_torch.interop import orbax
+from climsr_tpu_torch.interop.orbax import restore_pytree  # noqa: F401  (the JAX module's name)
+from climsr_tpu_torch.interop.params import load_generator_checkpoint, payload_from_jax_state
 
 logger = logging.getLogger(__name__)
 
@@ -116,21 +123,50 @@ class CheckpointManager:
 
 
 def checkpoint_file(path) -> Path:
-    """``path`` if it is a file, else the latest ``.ckpt`` of a checkpoint directory."""
+    """``path`` if it is a file, else the latest ``.ckpt`` of the port's
+    checkpoint directory, else the item directory of a JAX orbax checkpoint
+    (a manager root, a step directory or its ``default/``). A directory of
+    neither format raises ``FileNotFoundError`` naming both."""
     p = Path(path)
     if not p.is_dir():
         return p
-    if not (p / "index.json").exists():
-        raise NotImplementedError(
-            f"{p} holds no index.json of the port's checkpoints; reading the JAX package's orbax "
-            "directories needs tensorstore and JAX and is left out of the port (ROADMAP.md, queue 1, item 12)"
-        )
-    return CheckpointManager(p, save_top_k=-1).path()
+    if (p / "index.json").exists():
+        return CheckpointManager(p, save_top_k=-1).path()
+    return orbax.item_directory(p)
 
 
 def load_checkpoint(path, map_location: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
-    """A ``.ckpt`` file, or a checkpoint directory's latest one."""
-    return torch.load(checkpoint_file(path), map_location=map_location, weights_only=True)
+    """A ``.ckpt`` file, a checkpoint directory's latest one, or a JAX orbax
+    checkpoint as the same dict."""
+    f = checkpoint_file(path)
+    if f.is_dir():
+        payload = payload_from_jax_state(orbax.restore_pytree(f))
+        return _to(payload, torch.device(map_location))
+    return torch.load(f, map_location=map_location, weights_only=True)
+
+
+def _to(obj, device: torch.device):
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to(v, device) for v in obj]
+    return obj
+
+
+def extract_generator_params(restored: Any) -> Any:
+    """The generator's param tree of a restored JAX state
+    (``climsr_tpu/training/checkpoint.py:97-114``): ``params`` of a
+    ``TrainState``, else ``g_params`` of a ``GANTrainState``, else the tree
+    itself. Key presence, not truthiness: an empty ``params`` is returned as
+    it is."""
+    if isinstance(restored, dict):
+        if "params" in restored:
+            return restored["params"]
+        if "g_params" in restored:
+            return restored["g_params"]
+    return restored
 
 
 def restore_generator_params(path, model: torch.nn.Module) -> Tuple[int, int]:
@@ -138,7 +174,8 @@ def restore_generator_params(path, model: torch.nn.Module) -> Tuple[int, int]:
     into ``model`` every tensor of the checkpoint's generator whose name and
     shape match, keep the fresh initialization for the rest (rcan.py:195-219's
     lenient tail handling). ``path``: a ``.ckpt`` (the port's or the
-    reference's), a plain ``state_dict`` file, or a checkpoint directory.
+    reference's), a plain ``state_dict`` file, a checkpoint directory or a
+    JAX orbax checkpoint (its generator's subtree alone is read).
     Returns (tensors copied, tensors of ``model``'s ``state_dict``)."""
     source = load_generator_checkpoint(checkpoint_file(path))
     own = model.state_dict()

@@ -167,12 +167,35 @@ class ScheduledOptimizer:
         return out
 
     def load_state_dict(self, state: dict) -> None:
+        """A state from :meth:`state_dict`, or one made from a JAX optax
+        state (``interop.params.payload_from_jax_state``: its chain says
+        ``from_jax``, and its groups hold only their parameters, so this
+        optimizer's settings fill the rest)."""
         state = dict(state)
-        chain = state.pop("chain")
+        chain = dict(state.pop("chain"))
+        kind = chain.pop("from_jax", None)
+        if kind is not None:
+            state = self._from_jax(state, kind)
+        own = self.inner.state_dict()["param_groups"]
+        if len(own) == len(state["param_groups"]):
+            state["param_groups"] = [{**o, **g} for o, g in zip(own, state["param_groups"])]
         self.inner.load_state_dict(state)
         self.updates, self.mini_step = int(chain["updates"]), int(chain["mini_step"])
         acc = chain["acc"]
         self.acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self.params)]
+
+    def _from_jax(self, state: dict, kind: str) -> dict:
+        """optax's state of ``kind`` -> this torch optimizer's names: adamax
+        keeps ``nu + eps`` (torch adds eps inside its infinity norm)."""
+        family = {"adam": _ADAM_ALIASES + ("adamw", "adamax"), "adadelta": ("adadelta",), "adagrad": ("adagrad",),
+                  "rmsprop": ("rmsprop",), "sgd": ("sgd", "asgd"), "rprop": ("rprop",)}
+        if self.name not in family[kind]:
+            raise ValueError(f"the checkpoint holds optax's {kind} state; this run's optimizer is {self.name}")
+        if self.name == "adamax":
+            eps = self.spec.cfg.eps
+            state = dict(state, state={i: {"step": s["step"], "exp_avg": s["exp_avg"], "exp_inf": s["exp_avg_sq"] + eps}
+                                       for i, s in state["state"].items()})
+        return state
 
     def _set_hyperparameters(self) -> None:
         i, spec = self.updates, self.spec

@@ -22,15 +22,18 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages([str(PORT)], prefix="clim
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     """In a fresh interpreter: import every port module (and chip_smoke.py);
-    no jax, flax or climsr_tpu module is loaded, and none of the packages the
-    GPU machine may lack (cv2, pandas, yaml, PIL, matplotlib)."""
+    no jax, flax or climsr_tpu module is loaded, none of the packages the GPU
+    machine may lack (cv2, pandas, yaml, PIL, matplotlib), and none of the
+    checkpoint libraries the JAX package writes with (orbax, tensorstore,
+    zstandard, google_crc32c, zarr, numcodecs)."""
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for name in {MODULES + ['chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'climsr_tpu', 'cv2', 'pandas', 'yaml', 'PIL', 'matplotlib'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'climsr_tpu', 'cv2', 'pandas', 'yaml', 'PIL', 'matplotlib',\n"
+        "              'orbax', 'tensorstore', 'zstandard', 'google_crc32c', 'zarr', 'numcodecs'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -45,7 +48,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "preprocessing.cleanup", "preprocessing.data_download", "preprocessing.scrape_polish_mountains",
                  "result_inspection.models", "cli.preprocess", "cli.data_download", "cli.data_preparation",
                  "cli.inspect_results", "data.utils", "consts.plotting", "consts.result_inspection",
-                 "parallel.mesh", "parallel.halo", "parallel.launch", "parallel.cases"):
+                 "parallel.mesh", "parallel.halo", "parallel.launch", "parallel.cases", "io.zstd", "io.crc32c",
+                 "io.ocdbt", "interop.orbax"):
         assert f"climsr_tpu_torch.{name}" in MODULES
 
 
@@ -71,8 +75,37 @@ def test_feather_io_needs_no_pandas_and_preprocessing_no_torch(tmp_path):
     assert out.returncode == 0, out.stderr
 
 
+def test_orbax_fixture_reads_with_the_checkpoint_libraries_blocked(tmp_path):
+    """In a fresh interpreter with orbax, tensorstore, zstandard,
+    google_crc32c, zarr, numcodecs, jax and flax blocked (an import of any
+    raises): the port reads the committed JAX checkpoint and loads its
+    generator strictly."""
+    import tarfile
+
+    with tarfile.open(ROOT / "tests" / "fixtures" / "jax_orbax_ckpt.tar") as tar:
+        tar.extractall(tmp_path, filter="data")
+    code = (
+        "import sys\n"
+        "for name in ('orbax', 'tensorstore', 'zstandard', 'google_crc32c', 'zarr', 'numcodecs', 'jax', 'flax'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import torch\n"
+        "from climsr_tpu_torch.interop.params import load_generator_checkpoint\n"
+        "from climsr_tpu_torch.models import create_generator\n"
+        "from climsr_tpu_torch.training.checkpoint import load_checkpoint\n"
+        f"root = {str(tmp_path / 'checkpoints')!r}\n"
+        "m = create_generator('esrgan', dtype=torch.float32, device='cpu', nf=64, nb=1, gc=16, in_channels=3,\n"
+        "                     out_channels=1)\n"
+        "m.load_state_dict(load_generator_checkpoint(root), strict=True)\n"
+        "assert load_checkpoint(root)['global_step'] == 2\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_import_no_jax_and_nothing_of_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|climsr_tpu)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|climsr_tpu|orbax|tensorstore|zstandard|google_crc32c"
+                         r"|zarr|numcodecs)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in pattern.finditer(f.read_text())]
     assert not offenders

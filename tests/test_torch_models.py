@@ -205,8 +205,8 @@ def test_load_generator_checkpoint_reads_a_pl_ckpt(tmp_path, rng):
     torch.save(src.state_dict(), bare)
     assert sorted(load_generator_checkpoint(bare)) == sorted(src.state_dict())
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_generator_checkpoint(tmp_path)
+    with pytest.raises(FileNotFoundError, match="neither .* nor an orbax checkpoint"):
+        load_generator_checkpoint(tmp_path)  # a directory of neither the port's format nor orbax's
 
 
 def test_nearest_resize_ops_match_jax(rng):

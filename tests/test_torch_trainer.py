@@ -287,8 +287,8 @@ def test_checkpoint_manager_keeps_the_top_k(tmp_path):
     assert float(again.restore(2)["state_dict"]["w"][0]) == 2.0
     assert CheckpointManager(tmp_path / "none", save_top_k=0).save(1, {"epoch": 0}) is None
     assert CheckpointManager(tmp_path / "forced", save_top_k=0).save(1, {"epoch": 0}, force=True).exists()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_checkpoint(tmp_path)  # a directory without the port's index: an orbax tree is not read
+    with pytest.raises(FileNotFoundError, match="neither .* nor an orbax checkpoint"):
+        load_checkpoint(tmp_path)  # a directory of neither the port's format nor orbax's
 
 
 def test_gan_fine_tune_through_the_trainer(tiny_world, tmp_path):
