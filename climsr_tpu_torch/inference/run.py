@@ -14,6 +14,8 @@ Frames larger than 160x160 LR are overlap-tiled (128-px tiles, 8-px overlap)
 and swept in groups of months; only the land pixels come back to the host,
 12-bit packed under min-max normalization and as f16 otherwise. Writer threads
 read each group back and write the GeoTIFFs while the card runs the next.
+Under ``utils.profiling.recording`` the month list and the tiled sweep's
+stages record ``climsr.sweep.*`` spans and count the groups and months.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from climsr_tpu_torch.models import FUSION_GENERATORS, PRE_UPSCALED_GENERATORS, 
 from climsr_tpu_torch.ops.pack12 import unpack12
 from climsr_tpu_torch.parallel.halo import spatial_sharded_apply_multi
 from climsr_tpu_torch.parallel.mesh import all_gather_dim, axis_info, create_mesh, world
+from climsr_tpu_torch.utils import profiling
 
 B = consts.batch_items
 D = consts.datasets_and_preprocessing
@@ -135,7 +138,8 @@ def inference_on_full_images(
     frames = []
     metas = []
     for i in range(n):
-        item = ds[i]
+        with profiling.span("climsr.sweep.load_month", key=i):
+            item = ds[i]
         frames.append(item[B.lr])
         metas.append((item[B.filename], float(item[B.min]), float(item[B.max])))
     frames = np.stack(frames)
@@ -266,25 +270,40 @@ def _pipelined_tiled_sweep(
     n = frames.shape[0]
     k = min(group_size, n)
 
-    def write_group(i0, count, dev_out):
-        host = dev_out.cpu().numpy()  # ONE readback per group on this thread
+    def write_group(gi, i0, count, dev_out, enqueued):
+        # the group's spans on this thread hang under its enqueue span
+        def stage(name):
+            return profiling.span(name, key=gi, parent=enqueued)
+
+        with stage("climsr.sweep.readback"):
+            host = dev_out.cpu().numpy()  # ONE readback per group on this thread
         paths = []
         for j in range(count):
             filename, vmin, vmax = metas[i0 + j]
             # promote the f16 readback to f32 BEFORE denormalizing
             if land_idx is not None:
-                vals = unpack12(host[j], land_idx.size) if pack12 else host[j].astype(np.float32)
-                vals = _denormalize(scaler, vals, vmin, vmax)
-                arr = np.full((hr_h, hr_w), np.nan, np.float32)
-                arr.ravel()[land_idx] = vals
+                with stage("climsr.sweep.unpack12"):
+                    vals = unpack12(host[j], land_idx.size) if pack12 else host[j].astype(np.float32)
+                with stage("climsr.sweep.denormalize"):
+                    vals = _denormalize(scaler, vals, vmin, vmax)
+                    arr = np.full((hr_h, hr_w), np.nan, np.float32)
+                    arr.ravel()[land_idx] = vals
             else:
-                arr = host[j][:hr_h, :hr_w].astype(np.float32)
-                arr = _denormalize(scaler, arr, vmin, vmax)
-                arr = np.where(mask_bool, arr, np.nan).astype(np.float32)
+                with stage("climsr.sweep.denormalize"):
+                    arr = host[j][:hr_h, :hr_w].astype(np.float32)
+                    arr = _denormalize(scaler, arr, vmin, vmax)
+                    arr = np.where(mask_bool, arr, np.nan).astype(np.float32)
             out_path = os.path.join(out_dir, filename)
-            write_geotiff(out_path, arr, profile)
+            with stage("climsr.sweep.write"):
+                write_geotiff(out_path, arr, profile)
             paths.append(out_path)
         return paths
+
+    def collect():
+        j, fut = pending.popleft()
+        with profiling.span("climsr.sweep.writer_wait", key=j):
+            group_paths[j] = fut.result()
+        profiling.count("climsr.sweep.months", len(group_paths[j]))
 
     group_paths: List[Optional[List[str]]] = [None] * (-(-n // k))
     pending: "deque" = deque()
@@ -294,14 +313,14 @@ def _pipelined_tiled_sweep(
             count = chunk.shape[0]
             if count < k:  # pad the tail group to the group size
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], k - count, axis=0)])
-            dev_out = tiler.device_call_many(chunk)
-            pending.append((gi, pool.submit(write_group, i0, count, dev_out)))
+            with profiling.span("climsr.sweep.enqueue", key=gi) as enqueued:
+                dev_out = tiler.device_call_many(chunk)
+            profiling.count("climsr.sweep.groups")
+            pending.append((gi, pool.submit(write_group, gi, i0, count, dev_out, enqueued)))
             if len(pending) >= max_in_flight:
-                j, fut = pending.popleft()
-                group_paths[j] = fut.result()
+                collect()
         while pending:
-            j, fut = pending.popleft()
-            group_paths[j] = fut.result()
+            collect()
     for paths in group_paths:
         written.extend(paths)
     return written

@@ -91,6 +91,7 @@ from climsr_tpu_torch.training.schedules import resolve_momentum_schedule, resol
 from climsr_tpu_torch.training.tasks.gan import make_gan_step, make_gan_val_losses
 from climsr_tpu_torch.training.tasks.pretrain import _local_pretrain_step, make_eval_step, make_pretrain_step
 from climsr_tpu_torch.training.train_state import GANTrainState, TrainState
+from climsr_tpu_torch.utils import profiling
 from climsr_tpu_torch.utils.logging import MetricLogger
 
 B = consts.batch_items
@@ -556,18 +557,18 @@ class Trainer:
 
     # -----------------------------------------------------------------------
     def fit(self) -> Dict[str, float]:
-        from climsr_tpu_torch.utils import profiling
-
         name = self.trainer_cfg.profiler
         trace_dir = self.workdir / self.trainer_cfg.profiler_dir
         if name == "jax":
             # the config keeps the JAX preset's name (conf/profiler/jax.yaml):
             # there an xplane trace of the fit, here torch.profiler's Chrome
             # trace of it (kernels on the card by name, host ops, their links)
+            # the program's spans (utils/profiling.py) show in it as ranges
             prof = profiling.profiler(self.device)
             prof.start()
             try:
-                return self._fit_impl()
+                with profiling.recording():
+                    return self._fit_impl()
             finally:
                 prof.stop()
                 trace_dir.mkdir(parents=True, exist_ok=True)
@@ -585,7 +586,8 @@ class Trainer:
         self._epoch_profiler = profiling.profiler(self.device) if advanced else None
         self._epoch_profiled = False
         try:
-            return self._fit_impl()
+            with profiling.recording():  # the stage times are the climsr.fit.<stage> spans'
+                return self._fit_impl()
         finally:
             total = sum(self._stage_times.values()) or 1.0
             lines = [
@@ -609,12 +611,14 @@ class Trainer:
         times = getattr(self, "_stage_times", None)
         if times is None:
             return fn(*args)
-        t0 = time.time()
         try:
-            return fn(*args)
+            with profiling.span(f"climsr.fit.{name}") as stage:
+                try:
+                    return fn(*args)
+                finally:
+                    self._sync()
         finally:
-            self._sync()
-            times[name] = times.get(name, 0.0) + (time.time() - t0)
+            times[name] = times.get(name, 0.0) + stage.seconds
 
     def _fit_impl(self) -> Dict[str, float]:
         tc = self.trainer_cfg
@@ -694,7 +698,9 @@ class Trainer:
                 n_in_batch = batch[B.hr].shape[0]
             else:
                 n_in_batch = batch.shape[0]
-            self.state, metrics = self.train_step(self.state, batch)
+            with profiling.span("climsr.train.step", key=self.global_step):
+                self.state, metrics = self.train_step(self.state, batch)
+            profiling.count("climsr.train.steps")
             self.global_step += 1
             for cb in getattr(self, "_batch_end_cbs", ()):
                 cb.on_train_batch_end(self)
@@ -709,13 +715,14 @@ class Trainer:
                 if any(np.isnan(v) for v in host.values()):
                     raise FloatingPointError(f"NaN in training metrics at step {self.global_step}: {host}")
             if is_log_step:
-                if host is None:
-                    host = {k: float(v) for k, v in metrics.items()}
-                dt = time.time() - t0
-                host["train/samples_per_sec"] = samples / max(dt, 1e-9)
-                # the schedule advances once per optimizer step
-                host["lr"] = float(self.g_schedule(self.global_step // self._accum))
-                self.metric_logger.log_metrics(host, self.global_step)
+                with profiling.span("climsr.train.log", key=self.global_step):
+                    if host is None:
+                        host = {k: float(v) for k, v in metrics.items()}
+                    dt = time.time() - t0
+                    host["train/samples_per_sec"] = samples / max(dt, 1e-9)
+                    # the schedule advances once per optimizer step
+                    host["lr"] = float(self.g_schedule(self.global_step // self._accum))
+                    self.metric_logger.log_metrics(host, self.global_step)
             if self._max_micro_steps and self.global_step >= self._max_micro_steps:
                 break
         self._sync()

@@ -59,6 +59,7 @@ from climsr_tpu_torch.training.tasks.pretrain import (
     reduced,
 )
 from climsr_tpu_torch.training.train_state import GANTrainState
+from climsr_tpu_torch.utils.profiling import span
 
 B = consts.batch_items
 
@@ -114,8 +115,9 @@ def make_gan_step(
     def step(state: GANTrainState, batch: Dict) -> Tuple[GANTrainState, Metrics]:
         gp, dp = state.g_partition, state.d_partition
         check_partition("make_gan_step", gp, zero)
-        batch = prepare_batch(batch, state.step, generator_type, augment, augment_seed, store,
-                              mesh=None if gp is None else gp.mesh)
+        with span("climsr.step.prepare_batch"):
+            batch = prepare_batch(batch, state.step, generator_type, augment, augment_seed, store,
+                                  mesh=None if gp is None else gp.mesh)
         data = gp is not None and gp.size > 1  # the batch is split over a data axis
 
         def metric(v: torch.Tensor) -> torch.Tensor:  # a share summed over the data axis
@@ -137,40 +139,48 @@ def make_gan_step(
         d_ctx = nullcontext() if dp is None else dp.gathered()
         d = state.d_model.train()
         # ---- generator update: D's parameters take no gradient
-        state.g_optimizer.zero_grad()
-        _requires_grad(d, dp, False)
-        with nullcontext() if gp is None else gp.gathered():
-            sr = forward_g(state.g_model, batch)
-        hr = batch[B.hr].to(device=sr.device, dtype=torch.float32)
-        with d_ctx:
-            score_real = _apply_d(d, hr, compute_dtype)
-            score_fake = _apply_d(d, sr, compute_dtype)
-        adversarial = relativistic_g_loss(score_real, score_fake, mean, center)
+        with span("climsr.gan.g_forward"):
+            state.g_optimizer.zero_grad()
+            _requires_grad(d, dp, False)
+            with nullcontext() if gp is None else gp.gathered():
+                sr = forward_g(state.g_model, batch)
+            hr = batch[B.hr].to(device=sr.device, dtype=torch.float32)
+        with span("climsr.gan.d_forward"):
+            with d_ctx:
+                score_real = _apply_d(d, hr, compute_dtype)
+                score_fake = _apply_d(d, sr, compute_dtype)
+            adversarial = relativistic_g_loss(score_real, score_fake, mean, center)
         pixel = mean(torch.abs(sr - hr))
-        if perceptual_fn is not None and state.step % perceptual_interval == 0:
-            perceptual = perceptual_fn(sr, hr).float() * share
-        else:
-            perceptual = torch.zeros((), device=sr.device)
+        with span("climsr.gan.perceptual"):
+            if perceptual_fn is not None and state.step % perceptual_interval == 0:
+                perceptual = perceptual_fn(sr, hr).float() * share
+            else:
+                perceptual = torch.zeros((), device=sr.device)
         loss_g = pixel_weight * pixel + perceptual_weight * perceptual + adversarial_weight * adversarial
-        loss_g.backward()
-        if gp is not None:
-            gp.reduce_gradients()
-        state.g_optimizer.step()
-        if gp is not None:
-            gp.publish()
+        with span("climsr.gan.g_backward"):
+            loss_g.backward()
+            if gp is not None:
+                gp.reduce_gradients()
+        with span("climsr.gan.g_optimizer"):
+            state.g_optimizer.step()
+            if gp is not None:
+                gp.publish()
         _requires_grad(d, dp, True)
 
         # ---- discriminator update on the same sr, detached
-        state.d_optimizer.zero_grad()
-        with nullcontext() if dp is None else dp.gathered():
-            loss_d = relativistic_d_loss(_apply_d(d, hr, compute_dtype), _apply_d(d, sr.detach(), compute_dtype),
-                                         mean, center)
-        loss_d.backward()
-        if dp is not None:
-            dp.reduce_gradients()
-        state.d_optimizer.step()
-        if dp is not None:
-            dp.publish()
+        with span("climsr.gan.d_forward"):
+            state.d_optimizer.zero_grad()
+            with nullcontext() if dp is None else dp.gathered():
+                loss_d = relativistic_d_loss(_apply_d(d, hr, compute_dtype),
+                                             _apply_d(d, sr.detach(), compute_dtype), mean, center)
+        with span("climsr.gan.d_backward"):
+            loss_d.backward()
+            if dp is not None:
+                dp.reduce_gradients()
+        with span("climsr.gan.d_optimizer"):
+            state.d_optimizer.step()
+            if dp is not None:
+                dp.publish()
         state.step += 1
         return state, {
             "train/loss_G": metric(loss_g),

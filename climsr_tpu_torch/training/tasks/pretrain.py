@@ -53,6 +53,7 @@ from climsr_tpu_torch.models import apply_generator_batch
 from climsr_tpu_torch.ops.augment import augment_and_assemble, draw_flags, step_generator
 from climsr_tpu_torch.parallel.mesh import process_local_slice, shard_samples
 from climsr_tpu_torch.training.train_state import TrainState
+from climsr_tpu_torch.utils.profiling import span
 
 B = consts.batch_items
 
@@ -200,31 +201,37 @@ def _pretrain_step(model, generator_type, compute_dtype, augment, augment_seed, 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         part = state.partition
         check(part)
-        batch = prepare_batch(batch, state.step, generator_type, augment, augment_seed, store,
-                              mesh=None if part is None else part.mesh)
-        state.optimizer.zero_grad()
-        with nullcontext() if part is None else part.gathered():
-            if sharded_fwd is not None:
-                sr, hr = sharded_fwd(batch, compute_dtype)
+        with span("climsr.step.prepare_batch"):
+            batch = prepare_batch(batch, state.step, generator_type, augment, augment_seed, store,
+                                  mesh=None if part is None else part.mesh)
+        with span("climsr.step.forward"):
+            state.optimizer.zero_grad()
+            with nullcontext() if part is None else part.gathered():
+                if sharded_fwd is not None:
+                    sr, hr = sharded_fwd(batch, compute_dtype)
+                else:
+                    sr = apply_generator_batch(generator_type, state.model, batch, compute_dtype)
+                    hr = batch[B.hr]
+            hr = hr.to(device=sr.device, dtype=torch.float32)
+            if part is None:
+                loss = loss_fn(sr.float(), hr)
             else:
-                sr = apply_generator_batch(generator_type, state.model, batch, compute_dtype)
-                hr = batch[B.hr]
-        hr = hr.to(device=sr.device, dtype=torch.float32)
-        if part is None:
-            loss = loss_fn(sr.float(), hr)
-        else:
-            diff = sr.float() - hr
-            loss = share_of_mean(torch.square(diff) if squared else torch.abs(diff), part, batch[B.hr].shape[2])
-        loss.backward()
-        if part is None:
-            grads = [p.grad for p in state.optimizer.params if p.grad is not None]
-            grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
-        else:
-            part.reduce_gradients()
-            grad_norm = part.grad_norm()
-        state.optimizer.step()
-        if part is not None:
-            part.publish()
+                diff = sr.float() - hr
+                loss = share_of_mean(torch.square(diff) if squared else torch.abs(diff), part,
+                                     batch[B.hr].shape[2])
+        with span("climsr.step.backward"):
+            loss.backward()
+        with span("climsr.step.grad_norm"):
+            if part is None:
+                grads = [p.grad for p in state.optimizer.params if p.grad is not None]
+                grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+            else:
+                part.reduce_gradients()
+                grad_norm = part.grad_norm()
+        with span("climsr.step.optimizer"):
+            state.optimizer.step()
+            if part is not None:
+                part.publish()
         state.step += 1
         return state, {"train/loss": reduced(loss, part), "grad_norm": grad_norm}
 
