@@ -11,17 +11,17 @@
 - ``gradient_clip_val > 0``: ``optax.clip_by_global_norm``;
 - the update: ``torch.optim`` where its update is the optax one (adam and its
   config aliases with coupled L2, adamw with decoupled decay, adamax,
-  adadelta, sgd/asgd), written out where torch differs (adagrad: optax's
-  ``scale_by_rss`` puts eps inside the square root and gives 0 where the sum
-  is 0; rmsprop: ``scale_by_rms`` puts eps inside the root, then an optional
-  momentum trace) or has no counterpart (rprop, as the JAX package's own);
+  adadelta, sgd/asgd; Adam and AdamW through torch's fused kernel), written
+  out where torch differs (adagrad: optax's ``scale_by_rss`` puts eps inside
+  the square root and gives 0 where the sum is 0; rmsprop: ``scale_by_rms``
+  puts eps inside the root, then an optional momentum trace) or has no
+  counterpart (rprop, as the JAX package's own);
 - the lr ``schedule(i)`` at inner update i (0 first), and, with
   ``b1_schedule``, Adam's beta1 (or the sgd/rmsprop momentum) from it at the
   same count, as ``optax.inject_hyperparams`` re-reads it every update.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Iterable, List, Optional
 
@@ -30,9 +30,30 @@ import torch
 from climsr_tpu_torch.config.schemas import OptimizerConfig
 from climsr_tpu_torch.device import DeviceLike, resolve_device
 from climsr_tpu_torch.training.schedules import Schedule
+from climsr_tpu_torch.utils.profiling import count
 
 _ADAM_ALIASES = ("adam", "fusedadam", "cpuadam", "onebitadam")
 _NAMES = _ADAM_ALIASES + ("adamw", "adamax", "adadelta", "adagrad", "rmsprop", "sgd", "asgd", "rprop")
+# how a torch optimizer runs, not what it computes: a loaded state keeps this run's
+_IMPLEMENTATION = ("fused", "foreach", "capturable", "differentiable")
+
+
+def global_norm(grads: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
+    """The f32 L2 norm of the gradients taken together (``None`` skipped), as
+    optax's ``global_norm``: each leaf's norm in one multi-tensor
+    ``torch._foreach_norm``, then the norm of those norms, a handful of
+    launches whatever the number of leaves."""
+    grads = [g for g in grads if g is not None]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)))
+
+
+def _laid_out_as(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``p``'s memory layout. The fused Adam kernel walks a parameter,
+    its gradient and its moments in memory order, so they must share strides;
+    the models' convolutions are ``channels_last`` (``models/__init__.py``),
+    while an orbax checkpoint's moments, a ZeRO shard's gradient and a
+    gradient set by hand come in plain OIHW order."""
+    return t if t.stride() == p.stride() else torch.empty_like(p).copy_(t)
 
 
 class _WrittenOut(torch.optim.Optimizer):
@@ -107,10 +128,13 @@ class ScheduledOptimizer:
         self.name = cfg.name.lower()
         wd = cfg.weight_decay or 0.0
         betas = tuple(cfg.betas)
+        # one multi-tensor kernel for the whole update; it leaves the parameters'
+        # version counters alone, so step() advances them (see there)
+        self.fused = self.name in _ADAM_ALIASES + ("adamw",)
         if self.name in _ADAM_ALIASES:
-            self.inner = torch.optim.Adam(params, lr=cfg.lr, betas=betas, eps=cfg.eps, weight_decay=wd)
+            self.inner = torch.optim.Adam(params, lr=cfg.lr, betas=betas, eps=cfg.eps, weight_decay=wd, fused=True)
         elif self.name == "adamw":
-            self.inner = torch.optim.AdamW(params, lr=cfg.lr, betas=betas, eps=cfg.eps, weight_decay=wd)
+            self.inner = torch.optim.AdamW(params, lr=cfg.lr, betas=betas, eps=cfg.eps, weight_decay=wd, fused=True)
         elif self.name == "adamax":
             self.inner = torch.optim.Adamax(params, lr=cfg.lr, betas=betas, eps=cfg.eps, weight_decay=wd)
         elif self.name == "adadelta":
@@ -149,14 +173,19 @@ class ScheduledOptimizer:
             grads, self.acc, self.mini_step = self.acc, None, 0
         clip = self.spec.gradient_clip_val
         if clip and clip > 0:
-            norm = (float(self.norm_fn(grads)) if self.norm_fn is not None
-                    else math.sqrt(sum(float(g.float().square().sum()) for g in grads)))
+            norm = float((self.norm_fn or global_norm)(grads))
             if not norm < clip:
-                grads = [g * (clip / norm) for g in grads]
+                grads = torch._foreach_mul(grads, clip / norm)
         for p, g in zip(self.params, grads):
-            p.grad = g
+            p.grad = _laid_out_as(p, g) if self.fused else g
         self._set_hyperparameters()
         self.inner.step()
+        if self.fused:
+            # the fused kernel writes the parameters without advancing their
+            # versions; caches keyed on (data_ptr, _version), as the RDBs'
+            # packed kernel weights are, must see the update as in-place
+            torch.autograd.graph.increment_version(self.params)
+            count("climsr.optim.fused_updates")
         self.updates += 1
 
     def state_dict(self) -> dict:
@@ -178,8 +207,13 @@ class ScheduledOptimizer:
             state = self._from_jax(state, kind)
         own = self.inner.state_dict()["param_groups"]
         if len(own) == len(state["param_groups"]):
-            state["param_groups"] = [{**o, **g} for o, g in zip(own, state["param_groups"])]
+            state["param_groups"] = [{**o, **g, **{k: o[k] for k in _IMPLEMENTATION if k in o}}
+                                     for o, g in zip(own, state["param_groups"])]
         self.inner.load_state_dict(state)
+        if self.fused:
+            for p in self.params:
+                st = self.inner.state.get(p, {})
+                st.update({k: _laid_out_as(p, v) for k, v in st.items() if torch.is_tensor(v) and v.shape == p.shape})
         self.updates, self.mini_step = int(chain["updates"]), int(chain["mini_step"])
         acc = chain["acc"]
         self.acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self.params)]

@@ -52,6 +52,7 @@ from climsr_tpu_torch.metrics.suite import compute_metric_suite
 from climsr_tpu_torch.models import apply_generator_batch
 from climsr_tpu_torch.ops.augment import augment_and_assemble, draw_flags, step_generator
 from climsr_tpu_torch.parallel.mesh import process_local_slice, shard_samples
+from climsr_tpu_torch.training.optimizers import global_norm
 from climsr_tpu_torch.training.train_state import TrainState
 from climsr_tpu_torch.utils.profiling import span
 
@@ -223,8 +224,7 @@ def _pretrain_step(model, generator_type, compute_dtype, augment, augment_seed, 
             loss.backward()
         with span("climsr.step.grad_norm"):
             if part is None:
-                grads = [p.grad for p in state.optimizer.params if p.grad is not None]
-                grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+                grad_norm = global_norm(p.grad for p in state.optimizer.params)
             else:
                 part.reduce_gradients()
                 grad_norm = part.grad_norm()

@@ -9,7 +9,8 @@
 - a tiny tiled sweep records a ``climsr.sweep.load_month`` a month, the
   months written, and each group's writer stages under its enqueue span;
 - a tiny pre-training epoch and a GAN epoch of the Trainer record a
-  ``climsr.train.step`` a step, with the step's phases under it.
+  ``climsr.train.step`` a step, with the step's phases under it, and a
+  ``climsr.optim.fused_updates`` for each optimizer update.
 """
 import threading
 from collections import Counter
@@ -193,3 +194,21 @@ def test_trainer_epoch_records_each_step_and_its_phases(tiny_world, tmp_path, ov
         assert [c.name for c in rec.spans if c.parent == s.index] == phases
     logs = [s for s in rec.spans if s.name == "climsr.train.log"]
     assert logs and all(s.parent is None and s.key in range(1, len(steps) + 1) for s in logs)
+
+
+@pytest.mark.parametrize("overrides, updates_per_step", [
+    (["experiment=esrgan_pre_training"], 1),
+    (["experiment=esrgan_fine_tune_no_gan_pre_training", "discriminator.name=default",
+      "datamodule.cfg.europe_extent=false", "training.model_weights=null", "task.perceptual_cutoff=conv1_2"], 2),
+], ids=["pretrain", "gan"])
+def test_trainer_epoch_counts_each_fused_update(tiny_world, tmp_path, overrides, updates_per_step):
+    """AdamW on f32 parameters takes torch's fused kernel: one update a
+    pre-training step, two a GAN step (G and D)."""
+    trainer = _trainer(tiny_world, tmp_path, overrides)
+    try:
+        with profiling.recording() as rec:
+            trainer.train_epoch(0)
+    finally:
+        trainer.close()
+    assert trainer.global_step > 0
+    assert rec.counts["climsr.optim.fused_updates"] == updates_per_step * trainer.global_step
