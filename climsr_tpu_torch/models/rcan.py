@@ -5,7 +5,10 @@ The counterpart of ``climsr_tpu.models.rcan`` (reference ``climsr/models/rcan.py
 
 - ``CALayer``: squeeze-excite channel attention (global pool -> 1x1 reduce ->
   ReLU -> 1x1 expand -> sigmoid -> scale); the pool's mean is taken in
-  float32 and rounded once (:func:`~climsr_tpu_torch.models.common.global_avg_pool`),
+  float32 and rounded once (:func:`~climsr_tpu_torch.models.common.global_avg_pool`).
+  Each call runs in a span ``climsr.rcan.ca`` keyed by the block's index in
+  the net (group x n_resblocks + block) and adds one to the counter
+  ``climsr.rcan.ca_calls`` (``utils/profiling.py``; off by default),
 - ``RCAB``: conv-ReLU-conv + CA, residual,
 - ``ResidualGroup``: n_resblocks RCABs + conv, residual,
 - net: head conv -> n_resgroups groups + conv, global residual -> pixel-shuffle
@@ -41,11 +44,14 @@ from torch import nn
 from climsr_tpu_torch.models.common import TorchConv, global_avg_pool, init_torch_default_
 from climsr_tpu_torch.models.srcnn import SRCNN
 from climsr_tpu_torch.parallel.mesh import all_reduce_sum
+from climsr_tpu_torch.utils.profiling import count, span
 
 SpatialAxis = Optional[Tuple[object, int, int]]  # (process group, rank in the axis, axis size)
 
 
 class CALayer(nn.Module):
+    block: Optional[int] = None  # the RCAB's index in its RCAN, the key of its span
+
     def __init__(self, channel: int, reduction: int = 16, spatial_axis: SpatialAxis = None,
                  spatial_halo: int = 0, spatial_pad: int = 0):
         super().__init__()
@@ -71,7 +77,9 @@ class CALayer(nn.Module):
         return (all_reduce_sum(s, group) / all_reduce_sum(c, group)).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.conv_du(self.pool(x))
+        count("climsr.rcan.ca_calls")
+        with span("climsr.rcan.ca", key=self.block):
+            return x * self.conv_du(self.pool(x))
 
 
 class RCAB(nn.Module):
@@ -141,6 +149,8 @@ class RCAN(nn.Module):
         )
         self.tail = nn.Sequential(Upsampler(scaling_factor, n_feats), TorchConv(n_feats, out_channels, 3))
         self.srcnn = SRCNN(in_channels=3, out_channels=out_channels)
+        for i, ca in enumerate(m for m in self.modules() if isinstance(m, CALayer)):
+            ca.block = i
         if generator is not None:
             init_torch_default_(self, generator)
 
