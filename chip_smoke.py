@@ -55,7 +55,7 @@ Phases (each raises on failure; nothing is caught):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for the comparisons,
-2. build: the four kernel libraries from ``climsr_tpu_torch/csrc``, one
+2. build: the five kernel libraries from ``climsr_tpu_torch/csrc``, one
    ``nvcc`` each, started together; ptxas registers and spills,
 3. kernel A against its plain version at the inference shape (16 x 64 x
    128 x 128) and a ragged one (2 x 64 x 45 x 91), with and without the
@@ -103,6 +103,13 @@ Phases (each raises on failure; nothing is caught):
    and loss_D compared step by step; exactly 33 B1 + 33 B2 + 1 C launches
    per step and no A, D, E or F; ms/step, samples/s, a profiled step; then
    one val-loss call (33 A launches, finite losses),
+10b. the discriminator's chain between convolutions (``ops/d_tail.py``,
+   ``csrc/d_tail.cu``): ``bias_leaky_bn_pad`` at D's four block shapes and
+   ``bias_leaky_pad`` at its three strided-conv shapes (batch 192, bf16; f32
+   at each op's first shape) against their plain versions, forward, running
+   statistics and backward; two calls bitwise equal; forward and backward
+   timed beside their bound, the plain versions and the module chain they
+   replace (bias add, LeakyReLU, ``TorchBatchNorm``, reflection pad),
 11. pre-training at the reference defaults (nf=64, nb=23, gc=32): 4 steps
    through the kernels and 4 through the plain versions from the same seeded
    init and batch, compared as in phase 7; exactly 69 B1 + 69 B2 + 1 C
@@ -326,6 +333,16 @@ GAN_KEYS = ("train/loss_G", "train/loss_D", "val/rmse", "val/loss_G")
 # each tensor): through B1, B2 and C in bf16 at most twice the plain versions'
 # in bf16, or this, the bound phase 7 puts on grad norms (STEP_GRAD_NORM_TOL)
 GRAD_TOL = 5e-2
+
+# phase 10b, the discriminator's chain between convs at D's shapes (batch 192):
+# kernel against plain, max |kernel - plain| / max |plain|. f32: the order of
+# the statistics' and gradients' sums over up to 3.1 M pixels. bf16: the two
+# sides' f32 statistics differ in their last bits, which moves a normalised
+# value across a bf16 rounding boundary now and then (2^-8 relative), and the
+# backward carries it
+D_TAIL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+D_TAIL_BN = ((192, 64, 128, 128), (192, 128, 64, 64), (192, 256, 32, 32), (192, 512, 16, 16))
+D_TAIL_PAD = ((192, 64, 64, 64), (192, 128, 32, 32), (192, 256, 16, 16))
 
 NF, NB, GC = 64, 11, 16
 NB_REF, GC_REF = 23, 32  # GeneratorConfig's defaults (with nf=64): the reference's own widths
@@ -813,19 +830,35 @@ def phase_head_kernel(device, shapes=C_CHECKED) -> dict:
     return result
 
 
+def chain_bn_pad(y, bias, bn, slope=0.01):
+    """The module chain that ``d_tail.bias_leaky_bn_pad`` replaces, on any device."""
+    return torch.nn.functional.pad(bn(torch.nn.functional.leaky_relu(y + bias.to(y.dtype).view(1, -1, 1, 1), slope)),
+                                   (1, 1, 1, 1), mode="reflect")
+
+
+def chain_pad(y, bias, slope=0.01):
+    """The module chain that ``d_tail.bias_leaky_pad`` replaces, on any device."""
+    return torch.nn.functional.pad(torch.nn.functional.leaky_relu(y + bias.to(y.dtype).view(1, -1, 1, 1), slope),
+                                   (1, 1, 1, 1), mode="reflect")
+
+
 @contextlib.contextmanager
 def plain_training():
-    """Run FusedRDB and the fusion head's backward through the plain versions."""
-    from climsr_tpu_torch.ops import head_bwd, rdb
+    """Run FusedRDB, the fusion head's backward and the discriminator's chain
+    between convs through the plain versions (D's: the module chain)."""
+    from climsr_tpu_torch.ops import d_tail, head_bwd, rdb
 
-    saved = rdb.fused_rdb_fwd_save, rdb.fused_rdb_bwd, head_bwd.conv9_dx_c0
+    saved = rdb.fused_rdb_fwd_save, rdb.fused_rdb_bwd, head_bwd.conv9_dx_c0, d_tail.bias_leaky_bn_pad, \
+        d_tail.bias_leaky_pad
     rdb.fused_rdb_fwd_save = lambda x, weights, x0=None, packed=None: rdb.rdb_fwd_save_reference(x, weights, x0)
     rdb.fused_rdb_bwd = rdb.rdb_bwd_reference
     head_bwd.conv9_dx_c0 = head_bwd.conv9_dx_c0_reference
+    d_tail.bias_leaky_bn_pad, d_tail.bias_leaky_pad = chain_bn_pad, chain_pad
     try:
         yield
     finally:
-        rdb.fused_rdb_fwd_save, rdb.fused_rdb_bwd, head_bwd.conv9_dx_c0 = saved
+        (rdb.fused_rdb_fwd_save, rdb.fused_rdb_bwd, head_bwd.conv9_dx_c0, d_tail.bias_leaky_bn_pad,
+         d_tail.bias_leaky_pad) = saved
 
 
 def train_batch(n=TRAIN_N, lr=TRAIN_LR, scale=4) -> dict:
@@ -1102,6 +1135,7 @@ def phase_gan(device) -> dict:
     from climsr_tpu_torch.config.schemas import OptimizerConfig
     from climsr_tpu_torch.losses.perceptual import build_perceptual_loss
     from climsr_tpu_torch.models import create_discriminator, create_generator
+    from climsr_tpu_torch.ops.d_tail import bias_leaky_bn_pad, bias_leaky_pad
     from climsr_tpu_torch.ops.head import fused_hr_tail
     from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, dc0
     from climsr_tpu_torch.ops.rdb import fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save, fused_rdb_nhwc
@@ -1112,8 +1146,9 @@ def phase_gan(device) -> dict:
     batch = {k: v.to(device) for k, v in train_batch().items()}
     lr, dtype = 1e-4, torch.bfloat16
     perceptual = build_perceptual_loss(compute_dtype=dtype, cutoff="conv5_4", device=device)
-    counters = (fused_rdb_fwd_save, fused_rdb_bwd, conv9_dx_c0, fused_rdb, fused_rdb_nhwc, fused_hr_tail, dc0)
-    names = ("B1", "B2", "C", "A", "D", "E", "F")
+    counters = (fused_rdb_fwd_save, fused_rdb_bwd, conv9_dx_c0, fused_rdb, fused_rdb_nhwc, fused_hr_tail, dc0,
+                bias_leaky_bn_pad, bias_leaky_pad)
+    names = ("B1", "B2", "C", "A", "D", "E", "F", "D_bn_pad", "D_pad")
 
     def run(tag: str):
         g = create_generator("esrgan", dtype=dtype, generator=torch.Generator().manual_seed(0), device=device,
@@ -1150,7 +1185,9 @@ def phase_gan(device) -> dict:
         return g, d, state, step, trace, ms, launches
 
     g, d, state, step, trace, ms, launches = run("through the kernels")
-    expected = dict(B1=3 * NB * GAN_STEPS, B2=3 * NB * GAN_STEPS, C=GAN_STEPS, A=0, D=0, E=0, F=0)
+    # D's chain between convs: 4 D forwards a step, 4 + 3 calls each at 4 blocks
+    expected = dict(B1=3 * NB * GAN_STEPS, B2=3 * NB * GAN_STEPS, C=GAN_STEPS, A=0, D=0, E=0, F=0,
+                    D_bn_pad=16 * GAN_STEPS, D_pad=12 * GAN_STEPS)
     if launches != expected:
         raise AssertionError(f"GAN: expected launches {expected}, counted {launches}")
     device_breakdown(lambda: step(state, batch), what="GAN step")
@@ -1176,6 +1213,101 @@ def phase_gan(device) -> dict:
     if a_launches != 3 * NB:
         raise AssertionError(f"GAN val losses: expected {3 * NB} A launches, counted {a_launches}")
     return dict(launches=launches, ms=ms, plain_ms=plain_ms)
+
+
+def d_tail_bound(shape, dtype, kind: str, backward: bool) -> tuple:
+    """(ms, "bytes"): the least time of an op of D's chain at (N, C, H, W):
+    y read and the padded output written forward; the padded gradient, y (or
+    the output's interior for the mask) read and y's gradient written backward;
+    the per-channel vectors left out (kilobytes). Operations: about 10 a value."""
+    n, c, h, w = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    padded, plain = n * c * (h + 2) * (w + 2) * size, n * c * h * w * size
+    moved = padded + 2 * plain if backward else padded + plain
+    return bound(10.0 * n * c * h * w, moved, dtype)
+
+
+def phase_d_tail(device, card: str) -> dict:
+    """Phase 10b (see the module docstring). Returns {(op, shape): times}."""
+    from climsr_tpu_torch.models.common import TorchBatchNorm
+    from climsr_tpu_torch.ops import d_tail
+
+    results = {}
+    for kind, shapes in (("bias_leaky_bn_pad", D_TAIL_BN), ("bias_leaky_pad", D_TAIL_PAD)):
+        op = getattr(d_tail, kind)
+        for shape in shapes:
+            for dtype in (torch.bfloat16, torch.float32) if shape == shapes[0] else (torch.bfloat16,):
+                n, c, h, w = shape
+                gen = torch.Generator().manual_seed(c)
+                y = torch.randn(shape, generator=gen).to(device, dtype).contiguous(memory_format=torch.channels_last)
+                gp = torch.randn(n, c, h + 2, w + 2, generator=gen).to(device, dtype)
+                gp = gp.contiguous(memory_format=torch.channels_last)
+                bias = (torch.rand(c, generator=gen) - 0.5).to(device).requires_grad_(True)
+                bn = TorchBatchNorm(c).to(device)
+                with torch.no_grad():
+                    bn.weight.uniform_(0.5, 1.5)
+                    bn.bias.uniform_(-0.5, 0.5)
+                y.requires_grad_(True)
+                args = (y, bias, bn) if kind == "bias_leaky_bn_pad" else (y, bias)
+                wrt = (y, bias, bn.weight, bn.bias) if kind == "bias_leaky_bn_pad" else (y, bias)
+                rm = bn.running_mean.clone()
+                op.launches = op.backward_launches = 0
+                out = op(*args)
+                grads = torch.autograd.grad(out, wrt, gp)
+                if (op.launches, op.backward_launches) != (1, 1):
+                    raise AssertionError(f"{kind}: counted {op.launches} forward, {op.backward_launches} backward")
+                with torch.no_grad():
+                    if kind == "bias_leaky_bn_pad":
+                        mean, var = d_tail.bn_stats_reference(y, bias, 0.01)
+                        ref = d_tail.bias_leaky_bn_pad_reference(y, bias, bn.weight, bn.bias, mean, var, bn.eps, 0.01)
+                        want = d_tail.bias_leaky_bn_pad_backward_reference(gp, y, bias, bn.weight, mean, var, bn.eps,
+                                                                           0.01, True)
+                        stats_err = rel_err(bn.running_mean, 0.1 * mean + 0.9 * rm)[1]
+                    else:
+                        ref = d_tail.bias_leaky_pad_reference(y, bias, 0.01)
+                        want = d_tail.bias_leaky_pad_backward_reference(gp, out, 0.01)
+                        stats_err = 0.0
+                errs = [rel_err(out, ref)[1], stats_err] + [rel_err(g, r)[1] for g, r in zip(grads, want)]
+                tag = f"{kind} {dtype} {shape}"
+                print(f"# {tag}: max err out {errs[0]:.3e}, running mean {errs[1]:.3e}, gradients "
+                      + ", ".join(f"{e:.3e}" for e in errs[2:]) + f" (tol {D_TAIL_TOL[dtype]:g})")
+                if not max(errs) <= D_TAIL_TOL[dtype]:
+                    raise AssertionError(f"{tag}: kernels against plain versions {errs}")
+                if dtype != torch.bfloat16:
+                    continue
+
+                def backward(fn):
+                    o = fn(*args)
+                    return lambda: torch.autograd.grad(o, wrt, gp, retain_graph=True)
+
+                def first_grads():
+                    return torch.cat([g.float().flatten() for g in backward(op)()]).view(torch.int32)
+
+                assert_bitwise_repeatable(f"{tag} gradients", first_grads)
+                chain = chain_bn_pad if kind == "bias_leaky_bn_pad" else chain_pad
+                with torch.no_grad():
+                    fwd = cuda_ms(lambda: op(*args))
+                    chain_fwd = cuda_ms(lambda: chain(*args))
+                    if kind == "bias_leaky_bn_pad":
+                        plain_fwd = cuda_ms(lambda: d_tail.bias_leaky_bn_pad_reference(
+                            y, bias, bn.weight, bn.bias, *d_tail.bn_stats_reference(y, bias, 0.01), bn.eps, 0.01))
+                        plain_bwd = cuda_ms(lambda: d_tail.bias_leaky_bn_pad_backward_reference(
+                            gp, y, bias, bn.weight, mean, var, bn.eps, 0.01, True))
+                    else:
+                        plain_fwd = cuda_ms(lambda: d_tail.bias_leaky_pad_reference(y, bias, 0.01))
+                        plain_bwd = cuda_ms(lambda: d_tail.bias_leaky_pad_backward_reference(gp, out, 0.01))
+                bwd, chain_bwd = cuda_ms(backward(op)), cuda_ms(backward(chain))
+                b_fwd, b_bwd = d_tail_bound(shape, dtype, kind, False)[0], d_tail_bound(shape, dtype, kind, True)[0]
+                results[kind, shape] = dict(ms=fwd, bwd_ms=bwd, bound_ms=b_fwd, bwd_bound_ms=b_bwd,
+                                            plain_ms=plain_fwd, plain_bwd_ms=plain_bwd, library_ms=chain_fwd,
+                                            library_bwd_ms=chain_bwd, max_err=max(errs))
+                print(f"# {tag}: forward {fwd:.4f} ms (bound {b_fwd:.4f}, plain {plain_fwd:.4f}, module chain "
+                      f"{chain_fwd:.4f}); backward {bwd:.4f} ms (bound {b_bwd:.4f}, plain {plain_bwd:.4f}, module "
+                      f"chain {chain_bwd:.4f}) ({card})")
+    for key in ("ms", "bwd_ms", "bound_ms", "bwd_bound_ms", "library_ms", "library_bwd_ms"):
+        total = sum(r[key] for r in results.values())
+        print(f"# D's chain between convs, one D forward's 7 calls: {key} {total:.4f}")
+    return results
 
 
 # ---- the training entry point (phases 13, B, C, D) ---------------------------
@@ -3589,7 +3721,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         from climsr_tpu_torch.data.synthetic import make_synthetic_dataset
-        from climsr_tpu_torch.ops import cuda_lib, head, head_bwd, rdb
+        from climsr_tpu_torch.ops import cuda_lib, d_tail, head, head_bwd, rdb
     except ImportError as e:
         print(f"chip_smoke: the climsr_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -3606,7 +3738,8 @@ def main() -> int:
     # 2. build, one nvcc per library, all at once
     t0 = time.perf_counter()
     libs = cuda_lib.build({"climsr_rdb": rdb._SOURCES, "climsr_rdb_bwd": rdb._BWD_SOURCES,
-                           "climsr_head_bwd": head_bwd._SOURCES, "climsr_hr_tail": head._SOURCES})
+                           "climsr_head_bwd": head_bwd._SOURCES, "climsr_hr_tail": head._SOURCES,
+                           "climsr_d_tail": d_tail._SOURCES})
     print(f"# built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.3f} s")
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -3658,6 +3791,9 @@ def main() -> int:
     print(f"# GAN step, batch {TRAIN_N}: {gan['ms']:.3f} ms/step ({TRAIN_N / gan['ms'] * 1e3:.2f} samples/s) "
           f"through the kernels, {gan['plain_ms']:.3f} ms/step ({TRAIN_N / gan['plain_ms'] * 1e3:.2f} samples/s) "
           f"through the plain versions ({card})")
+
+    # 10b. the discriminator's chain between convs: kernels against plain versions, timed
+    phase_d_tail(device, card)
 
     # 11. pre-training at the reference defaults (nf=64, nb=23, gc=32)
     pre_ref = phase_pretrain(device, nb=NB_REF, gc=GC_REF, steps=REF_STEPS)

@@ -273,6 +273,21 @@ def _hr_tail_entry(rng):
     return head.fused_hr_tail(x, torch.zeros(64, 64, 3, 3), torch.zeros(64), torch.zeros(1, 64, 3, 3), torch.zeros(1))
 
 
+def _d_tail_bn_entry(rng):
+    from climsr_tpu_torch.models.common import TorchBatchNorm
+    from climsr_tpu_torch.ops import d_tail
+
+    y = torch.from_numpy(rng.normal(size=(2, 8, 3, 4)).astype(np.float32)).requires_grad_(True)
+    return d_tail.bias_leaky_bn_pad(y, torch.zeros(8, requires_grad=True), TorchBatchNorm(8))
+
+
+def _d_tail_pad_entry(rng):
+    from climsr_tpu_torch.ops import d_tail
+
+    y = torch.from_numpy(rng.normal(size=(2, 8, 3, 4)).astype(np.float32)).requires_grad_(True)
+    return d_tail.bias_leaky_pad(y, torch.zeros(8, requires_grad=True))
+
+
 KERNEL_WRAPPERS = {
     "climsr_tpu_torch.ops.rdb.fused_rdb": _rdb_entry,
     "climsr_tpu_torch.ops.rdb.fused_rdb_fwd_save": _rdb_entry,
@@ -280,6 +295,8 @@ KERNEL_WRAPPERS = {
     "climsr_tpu_torch.ops.rdb.fused_rdb_nhwc": _rdb_nhwc_entry,
     "climsr_tpu_torch.ops.head.fused_hr_tail": _hr_tail_entry,
     "climsr_tpu_torch.ops.head_bwd.conv9_dx_c0": _head_entry,
+    "climsr_tpu_torch.ops.d_tail.bias_leaky_bn_pad": _d_tail_bn_entry,
+    "climsr_tpu_torch.ops.d_tail.bias_leaky_pad": _d_tail_pad_entry,
 }
 
 
