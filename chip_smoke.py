@@ -283,9 +283,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM published dense peaks (NVIDIA data sheet)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
 # max |kernel - plain| / max |plain|: f32 differs by summation order only; bf16
 # also by where each side rounds its intermediates (cuDNN rounds every conv's
 # output and bias add to bf16, the kernel keeps f32 sums and rounds once)
@@ -423,31 +420,12 @@ def rdb_inputs(n, h, w, dtype, device, nf=NF, gc=GC):
     return x, x0, weights
 
 
-def rdb_macs_per_px(nf=NF, gc=GC) -> int:
-    return 9 * (sum((nf + k * gc) * gc for k in range(4)) + (nf + 4 * gc) * nf)
-
-
-def bound(flops: float, moved: float, dtype) -> tuple:
-    """(ms, "operations"|"bytes"): the least time on an H100, the larger of
-    the operations over the peak rate of ``dtype`` and the bytes over the
-    memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], moved / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def rdb_bound_ms(x: torch.Tensor, with_x0: bool, nf=NF, gc=GC):
-    """Kernel A's bound: its operations, and x, x0, out once and the packed f32 weights."""
-    n, _, h, w = x.shape
-    weight_bytes = 4 * (rdb_macs_per_px(nf, gc) + 4 * gc + nf)
-    moved = x.numel() * x.element_size() * (3 if with_x0 else 2) + weight_bytes
-    return bound(2.0 * rdb_macs_per_px(nf, gc) * n * h * w, moved, x.dtype)
-
-
 def phase_kernel(device, gc=GC, shapes=((16, 128, 128), (2, 45, 91)), timed=((16, 128, 128),)) -> dict:
     """Kernel A at growth width ``gc`` against rdb_reference at each of
     ``shapes``; returns {((n, h, w), with x0): numbers} for the bf16 cases of
     the shapes in ``timed``, which are also timed."""
     from climsr_tpu_torch.ops.rdb import fused_rdb, pack_rdb_weights, rdb_reference
+    from perfbench.peaks import rdb_bound_ms
 
     result = {}
     for n, h, w in shapes:
@@ -467,7 +445,7 @@ def phase_kernel(device, gc=GC, shapes=((16, 128, 128), (2, 45, 91)), timed=((16
                 if (n, h, w) in timed and dtype == torch.bfloat16:
                     ms = cuda_ms(lambda: fused_rdb(x, weights, res, packed))
                     plain = cuda_ms(lambda: rdb_reference(x, weights, res))
-                    bound, bound_by = rdb_bound_ms(x, res is not None, gc=gc)
+                    bound, bound_by = rdb_bound_ms(n, h, w, NF, gc, res is not None, "bfloat16")
                     print(f"# {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                           f"bound {bound:.4f} ms ({bound_by})")
                     result[(n, h, w), res is not None] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
@@ -700,6 +678,7 @@ def phase_train_kernels(device, gc=GC, shapes=B_CHECKED) -> dict:
     from climsr_tpu_torch.ops.rdb import (
         fused_rdb_bwd, fused_rdb_fwd_save, pack_rdb_weights, rdb_bwd_reference, rdb_fwd_save_reference,
     )
+    from perfbench.peaks import rdb_train_bounds_ms
 
     result = {}
     for n, h, w in shapes:
@@ -736,14 +715,7 @@ def phase_train_kernels(device, gc=GC, shapes=B_CHECKED) -> dict:
                 if not (worst <= tol):
                     raise AssertionError(f"B1/B2 {tag}: kernels disagree with the plain versions ({worst:.3e})")
                 if (n, dtype, res) == (TRAIN_N, torch.bfloat16, None):
-                    px = n * h * w
-                    total = NF + 4 * gc
-                    macs = rdb_macs_per_px(gc=gc)
-                    wbytes = 4 * macs + 4 * (4 * gc + NF)
-                    fwd_bytes = px * 2 * (2 * NF + total) + wbytes
-                    bwd_bytes = px * 2 * (total + 2 * NF) + wbytes
-                    b1_bound = bound(2.0 * macs * px, fwd_bytes, dtype)
-                    b2_bound = bound(4.0 * macs * px, bwd_bytes, dtype)
+                    b1_bound, b2_bound = rdb_train_bounds_ms(n, h, w, NF, gc, False, "bfloat16")
                     result["fused_rdb_fwd_save"] = dict(
                         max_abs_err=max(checks["out"][0], checks["feat"][0]),
                         ms=cuda_ms(lambda: fused_rdb_fwd_save(x, weights, None, packed)),
@@ -799,6 +771,7 @@ def phase_head_kernel(device, shapes=C_CHECKED) -> dict:
     import torch.nn.functional as F
 
     from climsr_tpu_torch.ops.head_bwd import conv9_dx_c0, conv9_dx_c0_reference
+    from perfbench.peaks import bound
 
     result = {}
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -816,7 +789,7 @@ def phase_head_kernel(device, shapes=C_CHECKED) -> dict:
                 raise AssertionError(f"{tag}: kernel disagrees with conv9_dx_c0_reference ({rel:.3e})")
             if (n, dtype) == (TRAIN_N, torch.bfloat16):
                 px = n * h * w
-                b = bound(2.0 * 81 * 64 * px, px * 2 * (64 + 1) + 4 * 81 * 64, dtype)
+                b = bound(2.0 * 81 * 64 * px, px * 2 * (64 + 1) + 4 * 81 * 64, "bfloat16")
                 w0 = weight[:, :1].contiguous()
                 result = dict(
                     max_abs_err=abs_err, ms=cuda_ms(lambda: conv9_dx_c0(g, weight)),
@@ -961,6 +934,7 @@ def phase_rdb_nhwc(device, gc=GC) -> dict:
     at growth width ``gc`` against rdb_reference. Its timed call packs the
     weights, as the JAX ``fused_rdb`` takes raw ones."""
     from climsr_tpu_torch.ops.rdb import fused_rdb_nhwc, rdb_reference
+    from perfbench.peaks import rdb_bound_ms
 
     result = {}
     for n, h, w in ((TRAIN_N, TRAIN_LR, TRAIN_LR), (3, 29, 45)):
@@ -977,7 +951,7 @@ def phase_rdb_nhwc(device, gc=GC) -> dict:
             if got.shape != xn.shape or not (rel <= TAIL_TOL[dtype]):
                 raise AssertionError(f"{tag}: kernel disagrees with rdb_reference ({rel:.3e})")
             if (n, dtype) == (TRAIN_N, torch.bfloat16):
-                b = rdb_bound_ms(x, False, gc=gc)
+                b = rdb_bound_ms(n, h, w, NF, gc, False, "bfloat16")
                 result = dict(max_abs_err=abs_err, ms=cuda_ms(lambda: fused_rdb_nhwc(xn, *hwio)),
                               plain_ms=cuda_ms(lambda: rdb_reference(x, weights)),
                               bound_ms=b[0], bound_by=b[1], library_ms=None)
@@ -995,11 +969,13 @@ def tail_inputs(n, h, w, dtype, device):
     return x, [((torch.rand(s, generator=gen) * 2 - 1) * bound).to(device) for s in shapes]
 
 
-def hr_tail_bound(x: torch.Tensor) -> tuple:
-    """Kernel E's bound: HRconv 64 -> 64 and conv_last 64 -> 1, x and out once and the weights."""
-    px = x.shape[0] * x.shape[2] * x.shape[3]
+def hr_tail_bound(n: int, h: int, w: int) -> tuple:
+    """Kernel E's bound in bf16: HRconv 64 -> 64 and conv_last 64 -> 1, x and out once and the weights."""
+    from perfbench.peaks import bound
+
+    px = n * h * w
     flops = 2.0 * 9 * NF * (NF + 1) * px
-    return bound(flops, px * 2 * (NF + 1) + 2 * 9 * NF * (NF + 1) + 4 * (NF + 1), x.dtype)
+    return bound(flops, px * 2 * (NF + 1) + 2 * 9 * NF * (NF + 1) + 4 * (NF + 1), "bfloat16")
 
 
 def phase_hr_tail(device) -> dict:
@@ -1021,7 +997,7 @@ def phase_hr_tail(device) -> dict:
             if got.shape != (n, 1, h, w) or not (rel <= TAIL_TOL[dtype]):
                 raise AssertionError(f"{tag}: kernel disagrees with hr_tail_reference ({rel:.3e})")
             if dtype == torch.bfloat16 and n in (TRAIN_N, 16):
-                b = hr_tail_bound(x)
+                b = hr_tail_bound(n, h, w)
                 timed = dict(max_abs_err=abs_err, ms=cuda_ms(lambda: fused_hr_tail(x, *weights)),
                              plain_ms=cuda_ms(lambda: hr_tail_reference(x, weights)),
                              bound_ms=b[0], bound_by=b[1], library_ms=None)
@@ -1110,13 +1086,14 @@ def phase_probe(device) -> dict:
     just before and read just after. Returns F1's and F2's numbers."""
     from climsr_tpu_torch.ops.head_bwd import dc0
     from climsr_tpu_torch.scripts import bench_head_bwd_probe as probe_mod
+    from perfbench.peaks import bound
 
     dc0.launches = 0
     dc0.variant_launches.update(dict.fromkeys(dc0.variant_launches, 0))
     res = probe_mod.probe(device)
     launches = dict(dc0.variant_launches)
     px = probe_mod.B * probe_mod.H * probe_mod.W
-    b = bound(2.0 * 81 * probe_mod.C * px, px * 2 * (probe_mod.C + 1) + 4 * 81 * probe_mod.C, torch.bfloat16)
+    b = bound(2.0 * 81 * probe_mod.C * px, px * 2 * (probe_mod.C + 1) + 4 * 81 * probe_mod.C, "bfloat16")
     out = {}
     for variant in ("flat", "dyfac"):
         r = res[f"dc0_{variant}"]
@@ -1215,13 +1192,15 @@ def phase_gan(device) -> dict:
     return dict(launches=launches, ms=ms, plain_ms=plain_ms)
 
 
-def d_tail_bound(shape, dtype, kind: str, backward: bool) -> tuple:
+def d_tail_bound(shape, dtype: str, backward: bool) -> tuple:
     """(ms, "bytes"): the least time of an op of D's chain at (N, C, H, W):
     y read and the padded output written forward; the padded gradient, y (or
     the output's interior for the mask) read and y's gradient written backward;
     the per-channel vectors left out (kilobytes). Operations: about 10 a value."""
+    from perfbench.peaks import ELEMENT_BYTES, bound
+
     n, c, h, w = shape
-    size = torch.empty((), dtype=dtype).element_size()
+    size = ELEMENT_BYTES[dtype]
     padded, plain = n * c * (h + 2) * (w + 2) * size, n * c * h * w * size
     moved = padded + 2 * plain if backward else padded + plain
     return bound(10.0 * n * c * h * w, moved, dtype)
@@ -1297,7 +1276,7 @@ def phase_d_tail(device, card: str) -> dict:
                         plain_fwd = cuda_ms(lambda: d_tail.bias_leaky_pad_reference(y, bias, 0.01))
                         plain_bwd = cuda_ms(lambda: d_tail.bias_leaky_pad_backward_reference(gp, out, 0.01))
                 bwd, chain_bwd = cuda_ms(backward(op)), cuda_ms(backward(chain))
-                b_fwd, b_bwd = d_tail_bound(shape, dtype, kind, False)[0], d_tail_bound(shape, dtype, kind, True)[0]
+                b_fwd, b_bwd = d_tail_bound(shape, "bfloat16", False)[0], d_tail_bound(shape, "bfloat16", True)[0]
                 results[kind, shape] = dict(ms=fwd, bwd_ms=bwd, bound_ms=b_fwd, bwd_bound_ms=b_bwd,
                                             plain_ms=plain_fwd, plain_bwd_ms=plain_bwd, library_ms=chain_fwd,
                                             library_bwd_ms=chain_bwd, max_err=max(errs))
@@ -1938,6 +1917,7 @@ def phase_widths(device, card: str, phase3: dict, phase6: dict) -> dict:
         fused_rdb, fused_rdb_bwd, fused_rdb_fwd_save, fused_rdb_nhwc, pack_rdb_weights, rdb_bwd_reference,
         rdb_fwd_save_reference, rdb_reference,
     )
+    from perfbench.peaks import rdb_bound_ms, rdb_train_bounds_ms
 
     dtype = torch.bfloat16
     out = {}
@@ -1977,11 +1957,8 @@ def phase_widths(device, card: str, phase3: dict, phase6: dict) -> dict:
                 if (n, h, w) != (TRAIN_N, TRAIN_LR, TRAIN_LR):
                     continue
                 _, feat = fused_rdb_fwd_save(x, weights, None, packed)
-                px, total, macs = n * h * w, nf + 4 * gc, rdb_macs_per_px(nf, gc)
-                wbytes = 4 * macs + 4 * (4 * gc + nf)
-                bounds = {"A": rdb_bound_ms(x, False, nf, gc),
-                          "B1": bound(2.0 * macs * px, px * 2 * (2 * nf + total) + wbytes, dtype),
-                          "B2": bound(4.0 * macs * px, px * 2 * (total + 2 * nf) + wbytes, dtype)}
+                b1_bound, b2_bound = rdb_train_bounds_ms(n, h, w, nf, gc, False, "bfloat16")
+                bounds = {"A": rdb_bound_ms(n, h, w, nf, gc, False, "bfloat16"), "B1": b1_bound, "B2": b2_bound}
                 runs = {"A": (lambda: fused_rdb(x, weights, None, packed), lambda: rdb_reference(x, weights)),
                         "B1": (lambda: fused_rdb_fwd_save(x, weights, None, packed),
                                lambda: rdb_fwd_save_reference(x, weights)),

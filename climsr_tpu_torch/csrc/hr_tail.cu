@@ -64,10 +64,6 @@
 // float32 (`hr_tail_f32_kernel`, the f32 checks' path): one block per 16 x 16
 // output tile, HRconv on the CUDA cores (`conv3x3_fma`) over channel-major
 // planes, weights tap-major [tap][cin][cout].
-//
-// With -DCLIMSR_PHASE_CLOCKS (climsr_tpu_torch/scripts/rdb_phase_clocks.py)
-// thread 0 of each bf16 block sums the SM clocks its warpgroup spends in each
-// phase of its tiles and writes the sums to g_phase_clocks[block][phase].
 
 #include "rdb_common.cuh"
 
@@ -99,32 +95,6 @@ constexpr size_t kSmemBf16 = (size_t)(kWElems + kGroups * (kStageElems + kHidEle
 // of an ldmatrix, and the epilogue's stores, fall on distinct banks.
 __device__ __forceinline__ int hid_at(int m, int c) { return m * kC + ((((c >> 3) ^ m) & 7) << 3) + (c & 7); }
 
-// Phase sums for -DCLIMSR_PHASE_CLOCKS (warpgroup 0's): its tile's x landed
-// and lrelu'd in place, HRconv's products (and the next tile's copies
-// issued), their epilogue, conv_last's projection, its shift-adds.
-struct PhaseSums {
-#ifdef CLIMSR_PHASE_CLOCKS
-  long long last, sum[kPhases];
-  __device__ __forceinline__ void start() {
-    last = clock64();
-    for (int i = 0; i < kPhases; ++i) sum[i] = 0;
-  }
-  __device__ __forceinline__ void mark(int i) {
-    const long long now = clock64();
-    sum[i] += now - last;
-    last = now;
-  }
-  __device__ __forceinline__ void write() const {
-    if (g_phase_clocks != nullptr && threadIdx.x == 0)
-      for (int i = 0; i < kPhases; ++i) g_phase_clocks[(size_t)blockIdx.x * kPhases + i] = sum[i];
-  }
-#else
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void write() const {}
-#endif
-};
-
 // the 128 threads of warpgroup `wg` wait for each other (named barrier 1 + wg)
 __device__ __forceinline__ void group_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -143,8 +113,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   bf16* xs = wsm + kWElems + wg * (kStageElems + kHidElems);  // this warpgroup's x: [kSH * kSW][kXP]
   bf16* hid = xs + kStageElems;                               // its intermediate: [kRegion][kC], hid_at
   float* proj = reinterpret_cast<float*>(hid);  // conv_last's projection [kRegion][9], over hid once it is read
-  PhaseSums clocks;
-  clocks.start();
 
   for (int i = tid; i < kWElems / 8; i += kThreads) cp_async16(wsm + 8 * i, whr + 8 * i, true);
   cp_async_commit();
@@ -193,7 +161,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       *p = v;
     }
     group_sync(wg);
-    clocks.mark(0);
 
     float acc[kMB][kLastN / 2] = {};
     unsigned a[3][kMB][4];  // three sets: two k-steps' products in flight while the next one loads
@@ -214,7 +181,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     group_sync(wg);  // every warp is done reading x: the next tile's copies land under the rest
     fetch(t + kGroups * gridDim.x);
     cp_async_commit();
-    clocks.mark(1);
 
     // bias, lrelu, round; zero outside the image (conv_last's SAME padding)
 #pragma unroll
@@ -236,7 +202,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     group_sync(wg);
-    clocks.mark(2);
 
     // conv_last's projection on the tensor cores: proj[m][tap] = sum_c hid[m][c] * Wcl[tap][c]
     // (mma.sync, M = the 16 M-tiles of region pixels, 4 per warp, N = 9 taps padded to 16, K = 64), f32
@@ -270,7 +235,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (t4 == 0) pr[8] = q[i][1][2 * half];
       }
     group_sync(wg);
-    clocks.mark(3);
 
     // the shift-adds: out = sum over the taps of proj[output pixel + tap's offset][tap], in order, + bias
     for (int j = wt; j < kTH * kTW; j += 128) {
@@ -281,9 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int gy = ty0 + oy, gx = tx0 + ox;
       if (gy < H && gx < W) out[((size_t)n * H + gy) * W + gx] = __float2bfloat16_rn(v + bl);
     }
-    clocks.mark(4);
   }
-  clocks.write();
 }
 
 // ---------------------------------------------------------------- float32, CUDA cores
@@ -389,11 +351,3 @@ extern "C" int climsr_hr_tail(const void* x, void* out, const void* whr, const f
   }
   return (int)cudaGetLastError();
 }
-
-#ifdef CLIMSR_PHASE_CLOCKS
-// The phase-clock build only: where the bf16 kernel writes its sums (blocks x
-// kPhases int64 on the device, or null for none).
-extern "C" int climsr_hr_tail_phase_clocks(void* clocks) {
-  return (int)cudaMemcpyToSymbol(rdb::g_phase_clocks, &clocks, sizeof(clocks));
-}
-#endif

@@ -31,22 +31,6 @@ constexpr int kHalo = 5;  // one pixel for each of the five convs
 constexpr int kPad = 8;   // bf16 buffer: channels per pixel = nf + 4*gc + kPad
 using bf16 = __nv_bfloat16;
 
-// Phase clocks, compiled in only with -DCLIMSR_PHASE_CLOCKS (for
-// climsr_tpu_torch/scripts/rdb_phase_clocks.py): thread 0 of each block
-// writes clock64() at kPhases points of the chain into
-// g_phase_clocks[block][kPhases], when the pointer is set.
-constexpr int kPhases = 8;
-#ifdef CLIMSR_PHASE_CLOCKS
-__device__ long long* g_phase_clocks;
-__device__ __forceinline__ void phase_clock(int i) {
-  if (g_phase_clocks != nullptr && threadIdx.x == 0)
-    g_phase_clocks[((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * kPhases + i] =
-        clock64();
-}
-#else
-__device__ __forceinline__ void phase_clock(int) {}
-#endif
-
 // 16 bytes global -> shared without passing through registers (cp.async,
 // sm_80 and later); zero-filled when !valid (src is then not read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -248,7 +232,6 @@ __device__ __forceinline__ void growth_products(float (&acc)[kGrowthMT][2 * NQ][
   const int groups = ws.groups(c), per = ws.per_chunk(c);
   for (int k = 0; k * per < groups; ++k, ++j) {
     const uint4* slot = reinterpret_cast<const uint4*>(ring_next(ws, ring, j)) + (threadIdx.x & 31);
-    if (j == 0) phase_clock(1);  // the buffer's loads and the first chunk have landed
     const int ng = min(per, groups - k * per);
 #pragma unroll 1
     for (int gl = 0; gl < ng; ++gl) {
@@ -308,7 +291,6 @@ __device__ __forceinline__ void growth_convs(const bf16* feat, WeightStream& ws,
         for (int nt = 0; nt < 2 * NQ; ++nt)
           growth(c, r0 + m / rw, r0 + m % rw, nt * 8 + 2 * t, acc[i][nt][2 * half], acc[i][nt][2 * half + 1]);
       }
-    phase_clock(2 + c);
   }
 }
 
@@ -362,7 +344,6 @@ __device__ __forceinline__ void last_pass(const bf16* feat, WeightStream& ws, bf
       wgmma_wait<0>();  // before the next ci group (or chunk) starts over with set 0
     }
   }
-  phase_clock(6);
 #pragma unroll
   for (int i = 0; i < kLastMT; ++i)
 #pragma unroll
@@ -374,7 +355,6 @@ __device__ __forceinline__ void last_pass(const bf16* feat, WeightStream& ws, bf
         last(kHalo + m / tw, kHalo + m % tw, n0 + nt * 8 + 2 * t, acc[i][4 * nt + 2 * half],
              acc[i][4 * nt + 2 * half + 1]);
     }
-  phase_clock(7);
 }
 
 // The five 3x3 convs of an RDB chain, bf16 on the tensor cores with f32

@@ -56,7 +56,7 @@
 //   bytes of buffer): 36,864 + 18 x 26 x 200 x 2 = 224,064, ~1.53x halo
 //   recompute, conv5 two 64-pixel M-blocks, one per warpgroup (12 x 12 fits
 //   too, but its three M-blocks and 25 growth M-tiles ran 12-28% slower in
-//   B1 and B2, `scripts/bench_rdb_tiles.py`); gc = 48, 8 x 8: 207,936. At
+//   B1 and B2 on an H100); gc = 48, 8 x 8: 207,936. At
 //   other nf the same rule picks 16 x 16, 8 x 16, 8 x 8 or, where the buffer
 //   is widest (nf = 112 and 128 at gc = 48), 4 x 8. One block of 8 warps per
 //   SM of the 232,448 bytes a block may use.
@@ -69,7 +69,7 @@
 // traffic, so it is bound by operations (66 us at the tensor cores' dense
 // bf16 rate, 30 us of memory). The design keeps every intermediate on chip,
 // so the traffic stays at x, x0 and out. What still holds it back (SM clocks
-// per block from climsr_tpu_torch/scripts/rdb_phase_clocks.py on an H100):
+// per block, measured on an H100):
 // the growth convs take 58% of a block's time, bound by reading their A
 // fragments from shared memory (16 operations per byte); conv5 28%; x's load
 // 8% and the epilogue 6%, with nothing to overlap them (one block per SM);
@@ -144,7 +144,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int oy = blockIdx.y * th - kHalo;  // image coordinates of buffer pixel (0, 0)
   const int ox = blockIdx.x * tw - kHalo;
   const size_t img = (size_t)blockIdx.z * H * W;
-  phase_clock(0);
 
   // x with its halo, 8 channels (16 bytes) at a time, zero outside the image;
   // its copies land together with the first weight chunk
@@ -302,14 +301,6 @@ extern "C" int climsr_rdb_fwd(const void* x, const void* x0, void* out, const vo
                               int h, int w_, int nf, int gc, int th, int tw, int is_bf16, void* stream) {
   return forward(x, x0, out, nullptr, w, b, n, h, w_, nf, gc, th, tw, is_bf16, stream);
 }
-
-#ifdef CLIMSR_PHASE_CLOCKS
-// The phase-clock build only: where the bf16 kernel writes its clocks
-// (blocks x kPhases int64 on the device, or null for none).
-extern "C" int climsr_rdb_phase_clocks(void* clocks) {
-  return (int)cudaMemcpyToSymbol(rdb::g_phase_clocks, &clocks, sizeof(clocks));
-}
-#endif
 
 // Kernel B1: the forward that also writes feat (N x H x W x (nf + 4*gc)).
 extern "C" int climsr_rdb_fwd_save(const void* x, const void* x0, void* out, void* feat, const void* w,

@@ -92,7 +92,7 @@ _GROWTH_MTILES, _LAST_MTILES = 8 * 5, 8 * 2
 # less halo (~1.47x against ~1.53x), but its 144 pixels make three 64-row M-blocks for conv5's two
 # warpgroups and 25 growth M-tiles for 8 warps, where 8 x 16 makes two and 24, and it overhangs a
 # 32 x 32 image: on an H100 B1 and B2 ran 12-28% slower at 12 x 12 than at 8 x 16, and A no faster
-# (``scripts/bench_rdb_tiles.py``, PERF.md). 4 x 8 only where nothing larger fits: nf=112
+# (PERF.md). 4 x 8 only where nothing larger fits: nf=112
 # and 128 at gc=48
 _TILES = {
     torch.bfloat16: ((16, 16), (8, 16), (8, 8), (4, 8)),

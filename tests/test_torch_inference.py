@@ -462,20 +462,25 @@ def test_run_inference_matches_jax(tmp_path, rng, esrgan_pair, use_netcdf):
 
 
 # --------------------------------------------------------------------------- chip_smoke.py
-def test_chip_smoke_phases_run_on_cpu_at_small_size():
+def test_chip_smoke_phases_run_on_cpu_at_small_size(monkeypatch):
     """chip_smoke.py's generator and whole-globe phases, with the plain RDB on
-    the CPU at a tiny width (the card runs them at full width), and its bound
-    at the main path's shape: 65.2 GFLOP at 989 TFLOP/s."""
+    the CPU at a tiny width (the card runs them at full width), and the bound
+    its phase 3 prints, the benchmark's (``perfbench/peaks.py``, with no copy
+    in the script), at the main path's shape: 65.2 GFLOP at 989 TFLOP/s."""
     import importlib.util
     from pathlib import Path
 
-    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    from perfbench.peaks import rdb_bound_ms
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smoke.phase_generator(CPU, nf=16, nb=1, gc=16, n=2, lr=8)
     out = smoke.phase_globe(CPU, months=2, h=36, w=72, nf=16, nb=1, gc=16, dtype=torch.float32,
                             tile_size=16, tile_overlap=4)
     assert out["months"] == 2 and out["launches"] == 0  # the CPU never launches the kernel
-    x = torch.empty(16, 64, 128, 128, dtype=torch.bfloat16, device="meta")
-    bound, by = smoke.rdb_bound_ms(x, with_x0=False)
+    assert not any(hasattr(smoke, name) for name in ("PEAK_FLOPS", "PEAK_BYTES_PER_S", "bound", "rdb_bound_ms"))
+    bound, by = rdb_bound_ms(16, 128, 128, smoke.NF, smoke.GC, False, "bfloat16")
     assert by == "operations" and abs(bound - 65.2e9 / 989e12 * 1e3) < 1e-3

@@ -44,7 +44,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "utils.logging", "training.checkpoint", "training.callbacks", "training.loop", "cli.train",
                  "cli.inference", "ops.pixel_shuffle", "models.rcan", "models.drln", "models.rfb_esrgan",
                  "training.batch_probe", "training.lr_finder", "training.hparams_search", "utils.profiling",
-                 "scripts.bench_rdb_widths", "io.feather", "native", "preprocessing.preprocessing",
+                 "io.feather", "native", "preprocessing.preprocessing",
                  "preprocessing.cleanup", "preprocessing.data_download", "preprocessing.scrape_polish_mountains",
                  "result_inspection.models", "cli.preprocess", "cli.data_download", "cli.data_preparation",
                  "cli.inspect_results", "data.utils", "consts.plotting", "consts.result_inspection",
