@@ -33,10 +33,15 @@
 //    region one pixel smaller, writing dz_k into its slice of B; a fifth conv
 //    gives dx. The tile's centre of B goes to device memory as `z`, the input
 //    of part 2. In bf16 this is the forward's `conv_chain` (rdb_common.cuh):
-//    weights through a two-slot shared-memory ring, mma.sync for the growth
-//    steps and wgmma for the nf-channel last conv (passes of at most 64
-//    outputs), the tile and shared memory of kernel A at the same widths, one
-//    block per SM.
+//    weights through a two-slot shared-memory ring, the growth steps
+//    source-major on mma.sync (step s's sum splits by B's slices like the
+//    forward's, so dz_5's slice feeds steps 0 and 1 from one read at gc = 16
+//    and 32, and the transposed weights pack in the same step order) and
+//    wgmma for the nf-channel last conv (passes of at most 64 outputs), the
+//    tile, shared memory and growth depth of kernel A at the same widths, one
+//    block per SM. The slope's h is read at a pixel clamped into the image
+//    whether or not the output is stored, so an epilogue's loads go out
+//    together.
 // 2. dW (`rdb_wgrad_*_kernel`). bf16: one block per job and split of the
 //    pixel tiles. A job is a 16-channel group of z (dz_5 in nf / 16 groups,
 //    then dz_4 .. dz_1, each the output gradient of one conv) and at most 128
@@ -67,9 +72,9 @@
 // bf16) the backward does twice the forward's products, 97.8 GFLOP (99 us at
 // the dense bf16 rate), against 151 MB of feat, g and dx (45 us), so it is
 // bound by operations. What still holds it back: part 1 is kernel A's chain
-// with the same limits (its growth steps read A fragments at about 60% of
-// shared memory's bandwidth, one block per SM, the halo recompute) plus a
-// global read of h per growth output for the slope; part 2 reads feat's
+// with the same limits (its growth products at mma.sync's rate, conv5's
+// wgmma one tap deep, one block per SM, the halo recompute) plus a global
+// read of h per growth output for the slope; part 2 reads feat's
 // shifted rows from shared memory once per 16 outputs (16 operations per
 // byte, the same bound as the growth convs), and z is written and read back
 // once (50 MB) with 16 MB of partials.
@@ -84,21 +89,24 @@ using namespace rdb;
 
 // Step s's epilogue (dz_{4-s}): dfeat(h_{4-s}) times LeakyReLU's slope at
 // h_{4-s} (from the saved feat), rounded to bf16, into B's channel slice
-// nf + s*gc; zero outside the image.
+// nf + s*gc; zero outside the image. Stores only where ok; h is read at the
+// pixel clamped into the image whatever ok is, so the unrolled epilogue
+// issues its loads together.
 struct SlopeStore {
   bf16* buf;
   const bf16* feat;
   size_t img;
   int cp, pw, nf, gc, total, oy, ox, H, W;
-  __device__ __forceinline__ void operator()(int s, int sy, int sx, int c, float v0, float v1) const {
+  __device__ __forceinline__ void operator()(int s, int sy, int sx, int c, float v0, float v1, bool ok) const {
     const int gy = oy + sy, gx = ox + sx;
-    __nv_bfloat162 r = __floats2bfloat162_rn(0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(
-          feat + (img + (size_t)gy * W + gx) * total + nf + (3 - s) * gc + c);
-      r = __floats2bfloat162_rn(__low2float(h) > 0.f ? v0 : 0.2f * v0, __high2float(h) > 0.f ? v1 : 0.2f * v1);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(buf + (sy * pw + sx) * cp + nf + s * gc + c) = r;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const int cy = min(max(gy, 0), H - 1), cx = min(max(gx, 0), W - 1);
+    const unsigned hv = __ldg(reinterpret_cast<const unsigned*>(
+        feat + (img + (size_t)cy * W + cx) * total + nf + (3 - s) * gc + c));
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hv);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(inside ? (__low2float(h) > 0.f ? v0 : 0.2f * v0) : 0.f,
+                                                   inside ? (__high2float(h) > 0.f ? v1 : 0.2f * v1) : 0.f);
+    if (ok) *reinterpret_cast<__nv_bfloat162*>(buf + (sy * pw + sx) * cp + nf + s * gc + c) = r;
   }
 };
 
@@ -530,7 +538,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `w` is the transposed, flipped
-// weight chain packed for the dtype (bf16 chain order or f32 tap-major);
+// weight chain packed for the dtype (bf16 chain order at growth depth
+// `depth`, as kernel A's, or f32 tap-major, depth ignored);
 // `z` (N x H x W x (nf + 4*gc)), `partial` (splits x the weight count) and
 // `db_partial` (splits x 4*gc) are scratch; dw is [dW_1 .. dW_5], each OIHW,
 // and db the growth convs' [db_1 .. db_4], both f32. bf16 reads the dW plan:
@@ -539,8 +548,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // Returns a cudaError_t value; 0 is success.
 extern "C" int climsr_rdb_bwd(const void* feat, const void* g, const void* w, void* dx, void* z, float* partial,
                               float* db_partial, float* dw, float* db, const int* jobs, const int* bounds, int njobs,
-                              int n, int h, int w_, int nf, int gc, int th, int tw, int splits, float gy_scale,
-                              float gx_scale, int is_bf16, void* stream) {
+                              int n, int h, int w_, int nf, int gc, int th, int tw, int depth, int splits,
+                              float gy_scale, float gx_scale, int is_bf16, void* stream) {
   if (n < 1 || h < 1 || w_ < 1 || th < 1 || tw < 1 || n > 65535 || splits < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
   if (nf % 16 || gc % 16) return (int)cudaErrorInvalidValue;
@@ -549,7 +558,7 @@ extern "C" int climsr_rdb_bwd(const void* feat, const void* g, const void* w, vo
   const dim3 grid((w_ + tw - 1) / tw, (h + th - 1) / th, n);
   cudaError_t err;
   if (is_bf16) {
-    if (!chain_fits(nf, gc, th, tw) || jobs == nullptr || bounds == nullptr || njobs < total / 16)
+    if (!chain_fits(nf, gc, th, tw, depth) || jobs == nullptr || bounds == nullptr || njobs < total / 16)
       return (int)cudaErrorInvalidValue;
     const size_t smem = chain_smem(nf, gc, th, tw);
     using Kernel = decltype(&rdb_bwd_dx_bf16_kernel<1, false>);

@@ -37,19 +37,22 @@
 //   x cin). The buffer is pixel-major, channels padded by 8 so the eight rows
 //   of an ldmatrix fall on distinct banks; A fragments come from it with
 //   ldmatrix, so a tap is an address offset. The weights (packed once by the
-//   wrapper, `chain_index`) stream through a ring of two 18,432-byte slots
-//   in shared memory with cp.async, one chunk (16 input channels x 9 taps x
-//   64 outputs, or 64 / gc input groups of a growth conv) ahead of the
+//   wrapper, `growth_steps`, `chain_index`) stream through a ring of two
+//   18,432-byte slots in shared memory with cp.async, one chunk (16 input
+//   channels x 9 taps x 64 outputs, or 64 / (depth x gc) input groups of a
+//   growth step) ahead of the
 //   products, so each block reads its 249 KB (gc = 16) or 479 KB (gc = 32)
 //   of weights from L2 once. x's copies land with the first chunk. The
-//   growth convs (gc outputs) run on mma.sync m16n8k16, each warp holding up
-//   to 5 M-tiles of 16 pixels with no branch in the loop, one A fragment
-//   feeding gc / 8 n-tiles; conv5 (nf outputs) runs on wgmma m64nNk16 in
-//   passes of at most 64 outputs (one pass of N = nf at nf <= 64, two at
-//   nf = 80 .. 128), two 64-pixel M-blocks per warpgroup, A from registers and
-//   B straight from the ring. wgmma is not used for the growth convs: with 16 or 32 outputs
-//   each A fragment feeds few columns, and their time goes to reading A from
-//   shared memory, which wgmma would not change.
+//   growth convs (gc outputs each) run source-major on mma.sync m16n8k16
+//   (rdb_common.cuh): two convs at a time at gc = 16 and 32 (the growth
+//   depth), each ldmatrix of a buffer slice feeding both convs' gc / 8
+//   n-tiles, so x is read twice and h_1 .. h_3 once or twice instead of up to
+//   four times; one conv at a time at gc = 48. Each warp holds up to 5
+//   M-tiles of 16 pixels with no branch in the loop. conv5 (nf outputs) runs
+//   on wgmma m64nNk16 in passes of at most 64 outputs (one pass of N = nf at
+//   nf <= 64, two at nf = 80 .. 128), one or two 64-pixel M-blocks per
+//   warpgroup (a compile-time count: a wgmma under a runtime branch is
+//   serialized), A from registers and B straight from the ring.
 //   Tile and shared memory (the wrapper's `_tile`, the first that fits):
 //   gc = 16, 16 x 16: 36,864 bytes of ring + 26 x 26 x 136 x 2 = 183,872
 //   bytes of buffer = 220,736; gc = 32, 8 x 16 (16 x 16 would need 270,400
@@ -69,15 +72,18 @@
 // traffic, so it is bound by operations (66 us at the tensor cores' dense
 // bf16 rate, 30 us of memory). The design keeps every intermediate on chip,
 // so the traffic stays at x, x0 and out. What still holds it back (SM clocks
-// per block, measured on an H100):
-// the growth convs take 58% of a block's time, bound by reading their A
-// fragments from shared memory (16 operations per byte); conv5 28%; x's load
-// 8% and the epilogue 6%, with nothing to overlap them (one block per SM);
-// and the halo recompute, ~1.27x the useful MACs at 16 x 16 tiles. B1 at the
-// training shape (192 x 64 x 32 x 32, bf16) needs 48.9 GFLOP (49 us)
-// against 126 MB (38 us), so it is bound by operations too. At gc = 32 an
-// RDB does 239,616 MAC a pixel (124,416 at gc = 16), so both bounds nearly
-// double and stay set by the operations.
+// per phase from a probe build on an H100, PERF.md §6): the growth products
+// run at mma.sync's rate, about half of wgmma's, and source-major they are
+// more (1746 m16n8k16 a warp against 1530 one conv at a time at gc = 16: a
+// group's region is larger than its later conv's); conv5's wgmma runs one tap
+// deep; then the growth epilogues and x's load, with nothing to overlap them
+// (one block per SM); and the halo recompute, ~1.27x the useful MACs at 16 x
+// 16 tiles. One conv at a time, the growth convs are bound by reading their
+// A fragments from shared memory (16 operations per byte); source-major, not.
+// B1 at the training shape (192 x 64 x 32 x 32, bf16) needs 48.9
+// GFLOP (49 us) against 126 MB (38 us), so it is bound by operations too. At
+// gc = 32 an RDB does 239,616 MAC a pixel (124,416 at gc = 16), so both
+// bounds nearly double and stay set by the operations.
 
 #include "rdb_common.cuh"
 
@@ -89,20 +95,21 @@ using namespace rdb;
 
 // Growth conv k's epilogue: bias, LeakyReLU, round to bf16, into the
 // buffer's channel slice nf + k*gc; zero at positions outside the image
-// (SAME padding).
+// (SAME padding). Stores only where ok; the bias loads do not depend on it,
+// so the unrolled epilogue issues them once.
 struct GrowthStore {
   bf16* feat;
   const float* b;
   int cp, pw, nf, gc, oy, ox, H, W;
-  __device__ __forceinline__ void operator()(int k, int sy, int sx, int c, float v0, float v1) const {
+  __device__ __forceinline__ void operator()(int k, int sy, int sx, int c, float v0, float v1, bool ok) const {
+    const float2 bias = __ldg(reinterpret_cast<const float2*>(b + k * gc + c));
     const int gy = oy + sy, gx = ox + sx;
-    __nv_bfloat162 r = __floats2bfloat162_rn(0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      v0 += b[k * gc + c];
-      v1 += b[k * gc + c + 1];
-      r = __floats2bfloat162_rn(v0 > 0.f ? v0 : 0.2f * v0, v1 > 0.f ? v1 : 0.2f * v1);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(feat + (sy * pw + sx) * cp + nf + k * gc + c) = r;
+    v0 += bias.x;
+    v1 += bias.y;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const __nv_bfloat162 r = __floats2bfloat162_rn(inside ? (v0 > 0.f ? v0 : 0.2f * v0) : 0.f,
+                                                   inside ? (v1 > 0.f ? v1 : 0.2f * v1) : 0.f);
+    if (ok) *reinterpret_cast<__nv_bfloat162*>(feat + (sy * pw + sx) * cp + nf + k * gc + c) = r;
   }
 };
 
@@ -272,11 +279,11 @@ int launch(Kernel kernel, size_t smem, const void* x, const void* x0, void* out,
 }
 
 int forward(const void* x, const void* x0, void* out, void* saved, const void* w, const void* b, int n, int h,
-            int w_, int nf, int gc, int th, int tw, int is_bf16, void* stream) {
+            int w_, int nf, int gc, int th, int tw, int depth, int is_bf16, void* stream) {
   if (n < 1 || h < 1 || w_ < 1 || th < 1 || tw < 1 || n > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (!chain_fits(nf, gc, th, tw)) return (int)cudaErrorInvalidValue;
+    if (!chain_fits(nf, gc, th, tw, depth)) return (int)cudaErrorInvalidValue;
     using Kernel = decltype(&rdb_fwd_bf16_kernel<1, false>);
     const Kernel kernels[2][kMaxGrowthQ] = {
         {&rdb_fwd_bf16_kernel<1, false>, &rdb_fwd_bf16_kernel<2, false>, &rdb_fwd_bf16_kernel<3, false>},
@@ -293,19 +300,20 @@ int forward(const void* x, const void* x0, void* out, void* saved, const void* w
 }  // namespace
 
 // Plain C entry points (bound with ctypes). `w` is the wrapper's packing for
-// the dtype: bf16 chain order (is_bf16) or f32 tap-major. Each returns a
-// cudaError_t value; 0 is success.
+// the dtype: bf16 chain order at growth depth `depth` (is_bf16; the
+// wrapper's `growth_depth`, which the kernel for gc must be built for) or f32
+// tap-major (depth ignored). Each returns a cudaError_t value; 0 is success.
 //
 // Kernel A: the forward.
 extern "C" int climsr_rdb_fwd(const void* x, const void* x0, void* out, const void* w, const void* b, int n,
-                              int h, int w_, int nf, int gc, int th, int tw, int is_bf16, void* stream) {
-  return forward(x, x0, out, nullptr, w, b, n, h, w_, nf, gc, th, tw, is_bf16, stream);
+                              int h, int w_, int nf, int gc, int th, int tw, int depth, int is_bf16, void* stream) {
+  return forward(x, x0, out, nullptr, w, b, n, h, w_, nf, gc, th, tw, depth, is_bf16, stream);
 }
 
 // Kernel B1: the forward that also writes feat (N x H x W x (nf + 4*gc)).
 extern "C" int climsr_rdb_fwd_save(const void* x, const void* x0, void* out, void* feat, const void* w,
-                                   const void* b, int n, int h, int w_, int nf, int gc, int th, int tw, int is_bf16,
-                                   void* stream) {
+                                   const void* b, int n, int h, int w_, int nf, int gc, int th, int tw, int depth,
+                                   int is_bf16, void* stream) {
   if (feat == nullptr) return (int)cudaErrorInvalidValue;
-  return forward(x, x0, out, feat, w, b, n, h, w_, nf, gc, th, tw, is_bf16, stream);
+  return forward(x, x0, out, feat, w, b, n, h, w_, nf, gc, th, tw, depth, is_bf16, stream);
 }

@@ -39,10 +39,12 @@ B2's input-gradient pass share one conv chain (``csrc/rdb_common.cuh``
 ``conv_chain``), which takes nf a multiple of 16 from 16 to 128 and gc a
 multiple of 16 up to 48 (the repo's ESRGAN configs: nf=64 with gc=16 in
 ``conf/generator/esrgan.yaml`` and gc=32 in ``GeneratorConfig``'s defaults):
-the weights, packed once in :func:`chain_index`'s order, stream through a
-two-slot ring in shared memory; the gc-channel growth convs run on
-``mma.sync`` (one A fragment feeds gc/8 n-tiles) and the nf-channel last conv
-on ``wgmma`` in passes of at most 64 outputs (:func:`last_passes`). The output
+the weights, packed once in :func:`growth_steps` and :func:`chain_index`'s
+order, stream through a two-slot ring in shared memory; the gc-channel growth
+convs run source-major on ``mma.sync``, :func:`growth_depth` convs at a time
+(one A fragment of a buffer slice feeds gc/8 n-tiles of each: 2 convs at
+gc=16 and 32, the per-conv step at gc=48), and the nf-channel last conv on
+``wgmma`` in passes of at most 64 outputs (:func:`last_passes`). The output
 tile is the first of ``_TILES`` whose buffer fits beside the ring
 (:func:`_tile`): at nf=64, 16 x 16 at gc=16 (220,736 of the 232,448 bytes a
 block may use), 8 x 16 at gc=32 (224,064; ~1.53x halo recompute against
@@ -51,10 +53,12 @@ gc=48); one block per SM. B2's weight gradient stages each pixel tile once for a
 block per (16 outputs, at most 128 inputs) job and split of the pixels, given
 by :func:`wgrad_plan`, with per-split f32 partials summed in a fixed order (no
 atomics); its two 55,104-byte stages fit two blocks per SM. What still holds
-them back is reading the growth convs' A fragments from shared memory (16 or
-32 outputs per fragment), x's load and the epilogues with nothing to overlap
-them, and the halo recompute. float32 runs on the CUDA cores, at any widths
-divisible by 16 (by 8 forward).
+them back is the growth products on ``mma.sync`` (about half ``wgmma``'s rate,
+and more of them source-major), the last conv's ``wgmma`` pipeline one tap
+deep, x's load and the epilogues with nothing to overlap them, and the halo
+recompute. float32 runs on the CUDA cores, at any widths divisible by 16 (by 8
+forward). The launches whose growth convs ran source-major are counted in each
+entry point's ``.source_major`` and in ``climsr.rdb.source_major.<kernel>``.
 
 Tensors are NCHW in ``torch.channels_last`` memory format (NHWC storage), so
 the cuDNN convs around the trunk and the kernel share one layout.
@@ -70,6 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from climsr_tpu_torch.ops import cuda_lib
+from climsr_tpu_torch.utils import profiling
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]  # five (OIHW weight, bias) pairs
 
@@ -84,9 +89,11 @@ _RING_BYTES = 2 * 9 * 16 * 64 * 2  # bf16 chain: two weight slots of 9 taps x 16
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # the bf16 chain (``chain_fits``): nf a multiple of 16 up to 128 (the last conv in
 # passes of at most _LAST_PASS outputs, wgmma's N), gc a multiple of 16 up to 48,
-# and each conv's 16-pixel M-tiles within 8 warps x 5 (growth) and 8 x 2 (last)
+# and each conv's 16-pixel M-tiles within 8 warps x 5, 3, 2 at gc 16, 32, 48 (growth) and 8 x 2 (last)
 _CHAIN_MAX_NF, _CHAIN_MAX_GC, _LAST_PASS = 128, 48, 64
-_GROWTH_MTILES, _LAST_MTILES = 8 * 5, 8 * 2
+_GROWTH_MT, _LAST_MTILES = {16: 5, 32: 3, 48: 2}, 8 * 2  # growth: M-tiles a warp holds, by gc (``kMaxMT``)
+_SLOT_COLS = 64  # bf16 chain: weight columns (outputs) a k-step of one ring slot holds
+_PENDING_REGS = 96  # bf16 chain: f32 registers a thread may give to the pending growth sums
 # output tiles (th, tw) tried in order; the first whose feature buffer fits is used. bf16:
 # 16 x 16 at gc=16, 8 x 16 at gc=32, 8 x 8 at gc=48. At gc=32, 12 x 12 fits too and recomputes
 # less halo (~1.47x against ~1.53x), but its 144 pixels make three 64-row M-blocks for conv5's two
@@ -185,6 +192,39 @@ def chain_index(cout: int, cin: int, last: bool = False) -> torch.Tensor:
     return flat.permute(2, 1, 0, 3, 4, 5).reshape(-1)
 
 
+def growth_depth(gc: int) -> int:
+    """How many growth convs one read of a buffer slice feeds in the bf16
+    chain (``csrc/rdb_common.cuh``, the kernels' ``kDepth``): the largest of 4,
+    2 and 1 whose k-step, depth x gc outputs, fits a ring slot's 64 columns,
+    and whose pending sums, depth x gc / 2 f32 registers a thread for each of
+    the M-tiles a warp holds (``_GROWTH_MT``: region 0 of the largest tile
+    whose buffer fits at that gc), fit in 96. 2 at gc=16 (depth 4 would hold
+    160 registers of sums; it spilled on an H100 and ran no faster), 2 at
+    gc=32, 1 at gc=48 (the per-conv step: two convs' 96 outputs overflow a
+    slot). The tile the wrapper picks (:func:`_tile`) never holds more
+    M-tiles than that largest one, so the depth depends on gc alone."""
+    for depth in (4, 2):
+        if depth * gc <= _SLOT_COLS and depth * (gc // 2) * _GROWTH_MT[gc] <= _PENDING_REGS:
+            return depth
+    return 1
+
+
+def growth_steps(nf: int, gc: int, depth: int) -> List[Tuple[int, int, Tuple[int, ...]]]:
+    """The bf16 chain's four growth steps at ``depth``: (first channel,
+    channels, convs fed) each. The growth convs run in groups of ``depth``
+    (convs a .. a + depth - 1); step c multiplies a part of the buffer ``[x,
+    h_1 .. h_4]`` into every conv of its group from c on: at a group's first
+    step channels [0, nf + c*gc) (x and every slice an earlier group
+    finished), at the others h_c's gc channels. After step c conv c is
+    complete. Depth 1 is conv c over all its inputs."""
+    steps = []
+    for c in range(4):
+        a = c // depth * depth
+        first, count = (0, nf + c * gc) if c == a else (nf + (c - 1) * gc, gc)
+        steps.append((first, count, tuple(range(c, a + depth))))
+    return steps
+
+
 def last_passes(nf: int) -> List[Tuple[int, int]]:
     """The bf16 chain's passes over the last conv's outputs, (first output,
     outputs) each: at most 64 a pass (wgmma's N), so one pass of nf at nf <= 64
@@ -198,30 +238,40 @@ def _conv_shapes(nf: int, gc: int) -> List[Tuple[int, int, int, int]]:
 
 
 @functools.lru_cache(maxsize=16)
-def _chain_gather(nf: int, gc: int, transposed: bool, device: torch.device) -> torch.Tensor:
+def _chain_gather(nf: int, gc: int, depth: int, transposed: bool, device: torch.device) -> torch.Tensor:
     """One index into the five forward OIHW weights, flattened and
-    concatenated, that gives the bf16 chain's packing in a single gather:
-    of the forward chain, or (``transposed``) of :func:`transposed_chain`
-    (kernel B2's input-gradient chain). Kept on ``device``."""
+    concatenated, that gives the bf16 chain's packing at growth ``depth`` in a
+    single gather: of the forward chain, or (``transposed``) of
+    :func:`transposed_chain` (kernel B2's input-gradient chain). Each growth
+    step of :func:`growth_steps` packs the rows of the convs it feeds, one
+    conv's gc after the other, over its channels, as one matrix in
+    :func:`chain_index`'s order; then the last conv's passes. Kept on ``device``."""
     shapes = _conv_shapes(nf, gc)
     sizes = [math.prod(s) for s in shapes]
     convs = [(part.view(s), None) for part, s in zip(torch.split(torch.arange(sum(sizes)), sizes), shapes)]
     if transposed:
         convs = transposed_chain(convs)
     parts = []
-    for k, (wt, _) in enumerate(convs):
-        cout, cin = wt.shape[:2]
-        rows = last_passes(cout) if k == 4 else [(0, cout)]
-        for n0, n in rows:
-            parts.append(wt[n0:n0 + n].permute(0, 2, 3, 1).reshape(-1)[chain_index(n, cin, last=k == 4)])
+    for first, count, fed in growth_steps(nf, gc, depth):
+        wt = torch.cat([convs[c][0][:, first:first + count] for c in fed])
+        parts.append(wt.permute(0, 2, 3, 1).reshape(-1)[chain_index(wt.shape[0], count)])
+    wt = convs[4][0]
+    for n0, n in last_passes(nf):
+        parts.append(wt[n0:n0 + n].permute(0, 2, 3, 1).reshape(-1)[chain_index(n, wt.shape[1], last=True)])
     return torch.cat(parts).to(device)
+
+
+def _chain_depth(nf: int, gc: int) -> int:
+    """The bf16 chain's growth depth at these widths (:func:`_tile` raises for widths the chain does not take)."""
+    _tile(nf, gc, torch.bfloat16)
+    return growth_depth(gc)
 
 
 def _pack_chain(weights: Weights, transposed: bool) -> torch.Tensor:
     """The bf16 chain packing of the five (OIHW weight, bias) pairs' weights, on their device."""
     gc, nf = weights[0][0].shape[0], weights[4][0].shape[0]
     flat = torch.cat([wt.detach().reshape(-1) for wt, _ in weights]).to(torch.bfloat16)
-    return flat[_chain_gather(nf, gc, transposed, flat.device)]
+    return flat[_chain_gather(nf, gc, _chain_depth(nf, gc), transposed, flat.device)]
 
 
 def _widths(weights: Weights) -> Tuple[int, int]:
@@ -265,7 +315,7 @@ def _tile(nf: int, gc: int, dtype: torch.dtype) -> Tuple[int, int]:
         ph, pw = th + 2 * _HALO, tw + 2 * _HALO
         if dtype == torch.bfloat16:
             smem = ph * pw * (nf + 4 * gc + _PAD) * 2 + _RING_BYTES
-            if (ph - 2) * (pw - 2) > 16 * _GROWTH_MTILES or th * tw > 16 * _LAST_MTILES:
+            if (ph - 2) * (pw - 2) > 16 * 8 * _GROWTH_MT[gc] or th * tw > 16 * _LAST_MTILES:
                 continue
         else:
             smem = (nf + 4 * gc) * ph * pw * 4
@@ -276,8 +326,8 @@ def _tile(nf: int, gc: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 def _library() -> ctypes.CDLL:
     lib = cuda_lib.load("climsr_rdb", _SOURCES)
-    lib.climsr_rdb_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.climsr_rdb_fwd_save.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.climsr_rdb_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.climsr_rdb_fwd_save.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.climsr_rdb_fwd.restype = lib.climsr_rdb_fwd_save.restype = ctypes.c_int
     return lib
 
@@ -285,7 +335,7 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = cuda_lib.load("climsr_rdb_bwd", _BWD_SOURCES)
     lib.climsr_rdb_bwd.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.climsr_rdb_bwd.restype = ctypes.c_int
     return lib
@@ -347,6 +397,7 @@ def fused_rdb(
 
 
 fused_rdb.launches = 0  # kernel A launches since the count was last reset
+fused_rdb.source_major = 0  # of them, those whose growth convs ran source-major (bf16 at gc=16, 32)
 
 
 def _launch_forward(x, weights, x0, packed, save: bool, counter) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -365,8 +416,10 @@ def _launch_forward(x, weights, x0, packed, save: bool, counter) -> Tuple[torch.
     if out.numel() == 0:
         return out, feat
     th, tw = _tile(packed.nf, packed.gc, x.dtype)
+    bf16 = x.dtype == torch.bfloat16
+    depth = growth_depth(packed.gc) if bf16 else 1
     lib = _library()
-    args = (n, h, w, packed.nf, packed.gc, th, tw, int(x.dtype == torch.bfloat16))
+    args = (n, h, w, packed.nf, packed.gc, th, tw, depth, int(bf16))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         x0_ptr = None if x0 is None else x0.data_ptr()
@@ -379,7 +432,16 @@ def _launch_forward(x, weights, x0, packed, save: bool, counter) -> Tuple[torch.
     if err != 0:
         raise RuntimeError(f"{counter.__name__} kernel launch failed: CUDA error {err}")
     counter.launches += 1
+    if depth > 1:
+        _count_source_major(counter, "B1" if save else "A")
     return out, feat
+
+
+def _count_source_major(counter, kernel: str) -> None:
+    """One launch whose chain took the source-major growth step (depth > 1):
+    in ``counter.source_major`` and the recorder's ``climsr.rdb.source_major.<kernel>``."""
+    counter.source_major += 1
+    profiling.count(f"climsr.rdb.source_major.{kernel}")
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +511,7 @@ def fused_rdb_fwd_save(
 
 
 fused_rdb_fwd_save.launches = 0  # kernel B1 launches since the count was last reset
+fused_rdb_fwd_save.source_major = 0  # of them, those whose growth convs ran source-major
 
 
 def transposed_chain(weights: Weights) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -576,22 +639,26 @@ def fused_rdb_bwd(
     dw = torch.empty(sum(sizes), **f32)
     db = torch.empty(4 * gc, **f32)
     th, tw = _tile(nf, gc, g.dtype)
+    depth = growth_depth(gc) if bf16 else 1
     lib = _bwd_library()
     with torch.cuda.device(g.device):
         err = lib.climsr_rdb_bwd(
             feat.data_ptr(), g.data_ptr(), packed.w.data_ptr(), dx.data_ptr(), z.data_ptr(), partial.data_ptr(),
-            db_partial.data_ptr(), dw.data_ptr(), db.data_ptr(), *plan, n, h, w, nf, gc, th, tw, splits,
+            db_partial.data_ptr(), dw.data_ptr(), db.data_ptr(), *plan, n, h, w, nf, gc, th, tw, depth, splits,
             float(gy_scale), float(gx_scale), int(bf16), torch.cuda.current_stream(g.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_rdb_bwd kernel launch failed: CUDA error {err}")
     fused_rdb_bwd.launches += 1
+    if depth > 1:
+        _count_source_major(fused_rdb_bwd, "B2")
     dws = [part.view(wt.shape) for part, (wt, _) in zip(torch.split(dw, sizes), weights)]
     dbs = list(torch.split(db, gc)) + [gy_scale * g.sum((0, 2, 3), dtype=torch.float32)]
     return dx, dws, dbs
 
 
 fused_rdb_bwd.launches = 0  # kernel B2 calls since the count was last reset
+fused_rdb_bwd.source_major = 0  # of them, those whose dX pass's growth steps ran source-major
 
 
 class FusedRDB(torch.autograd.Function):
@@ -677,3 +744,4 @@ def fused_rdb_nhwc(
 
 
 fused_rdb_nhwc.launches = 0  # kernel A launches through this entry since the count was last reset
+fused_rdb_nhwc.source_major = 0  # of them, those whose growth convs ran source-major

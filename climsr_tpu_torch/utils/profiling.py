@@ -16,8 +16,9 @@ table, copied as it is.
 
 Spans and counters: :func:`span` marks a stage of the program's own work
 (``climsr.sweep.*``, ``climsr.train.*``, ``climsr.step.*``, ``climsr.gan.*``,
-``climsr.fit.*``) and :func:`count` a unit of it, both into the recorder that
-:func:`recording` turns on. Off, which is the default, a span is one shared
+``climsr.fit.*``) and :func:`count` a unit of it (``climsr.rdb.source_major.A``,
+``.B1``, ``.B2``: the RDB kernels' launches whose growth convs ran source-major),
+both into the recorder that :func:`recording` turns on. Off, which is the default, a span is one shared
 no-op context and a count returns at once: a flag test each, no allocation, no
 clock read. On, a span keeps its name, thread, start and end in
 ``time.time_ns()`` (the clock of a ``torch.profiler`` trace's

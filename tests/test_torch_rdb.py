@@ -132,68 +132,100 @@ def test_packed_weights_are_tap_major_hwio(rng):
     np.testing.assert_array_equal(packed.b.numpy(), np.concatenate([ws[2 * k + 1] for k in range(5)]))
 
 
-def _assert_chain_order(weights, packed_w):
-    offset = 0
+def _unpack_chain(packed_w, nf, gc, depth):
+    """Walk the bf16 chain's weight stream as the kernels consume it
+    (``csrc/rdb_common.cuh``: ``WeightStream``, ``growth_products``,
+    ``last_pass``), chunk after chunk of at most 64 columns (one ring slot),
+    and put every element back at its (output, input, ky, kx) in its conv's
+    OIHW weight. Growth step t of a group of ``depth`` convs (a = t // depth *
+    depth) feeds convs t .. a + depth - 1 from channels [0, nf + t*gc) at the
+    group's first step and from h_t's gc channels at the others; element
+    (((gl * 9 + tap) * NP + p) * NQ + q) * 32 + lane) * 8 + 2 * word + half of a
+    chunk is mma.m16n8k16's B[k][n] of pending conv p (PTX ISA, m16n8k16
+    fragments), n = 16q + 8 (word // 2) + lane // 4, k = 2 (lane % 4) + 8 (word %
+    2) + half of the chunk's channel group gl. The last conv's passes (at most
+    64 outputs) follow, each k-step wgmma's K-major B tile without swizzle: core
+    matrix (output block b, k half h) is 8 rows (outputs 8b + r) of 8 k (16
+    bytes) at (2b + h) * 128 bytes. Returns the five weights and how often each
+    element was written."""
+    w = packed_w.float().numpy()
+    convs = [np.zeros((gc if k < 4 else nf, nf + k * gc, 3, 3), np.float32) for k in range(5)]
+    hits = [np.zeros(c.shape, np.int64) for c in convs]
+    pos = 0
+
+    def put(conv, n, ci, tap, values):
+        np.add.at(hits[conv], (n, ci, tap // 3, tap % 3), 1)
+        convs[conv][n, ci, tap // 3, tap % 3] = values
+
+    nq = gc // 16
+    for t in range(4):
+        a = t // depth * depth
+        fed = list(range(t, a + depth))
+        ch0, channels = (0, nf + t * gc) if t == a else (nf + (t - 1) * gc, gc)
+        cols = len(fed) * gc
+        assert cols <= 64  # a k-step fits one ring slot
+        per, groups = 64 // cols, channels // 16
+        for k0 in range(0, groups, per):
+            ng = min(per, groups - k0)
+            size = ng * 9 * cols * 16
+            chunk = w[pos:pos + size].reshape(ng, 9, len(fed), nq, 32, 4, 2)
+            pos += size
+            gl, tap, p, q, lane, word, half = np.meshgrid(*(np.arange(d) for d in chunk.shape), indexing="ij")
+            n = 16 * q + 8 * (word // 2) + lane // 4
+            ci = ch0 + 16 * (k0 + gl) + 2 * (lane % 4) + 8 * (word % 2) + half
+            for i, conv in enumerate(fed):
+                sel = p == i
+                put(conv, n[sel], ci[sel], tap[sel], chunk[sel])
+    cin = nf + 4 * gc
+    for n0 in range(0, nf, 64):
+        nn = min(64, nf - n0)
+        per, groups = 64 // nn, cin // 16
+        for k0 in range(0, groups, per):
+            ng = min(per, groups - k0)
+            size = ng * 9 * 16 * nn
+            chunk = w[pos:pos + size].reshape(ng, 9, nn // 8, 2, 8, 8)
+            pos += size
+            gl, tap, b, h, r, kr = np.meshgrid(*(np.arange(d) for d in chunk.shape), indexing="ij")
+            put(4, n0 + 8 * b + r, 16 * (k0 + gl) + 8 * h + kr, tap, chunk)
+    assert pos == w.size  # the stream ends where the packing does
+    return convs, hits
+
+
+def _assert_chain_order(weights, packed_w, depth=None):
+    """``packed_w`` is the bf16 chain's stream of ``weights`` (five OIHW
+    convs in the forward chain's shapes) at the wrapper's growth depth: every
+    streamed chunk unpacks back to the weights, each element once."""
+    gc, nf = weights[0][0].shape[0], weights[4][0].shape[0]
+    depth = rdb._chain_depth(nf, gc) if depth is None else depth
+    convs, hits = _unpack_chain(packed_w, nf, gc, depth)
     for k, (wt, _) in enumerate(weights):
-        cout, cin = wt.shape[:2]
-        wb = wt.to(torch.bfloat16).float().numpy()  # (cout, cin, 3, 3)
-        n_words = cout * 9 * cin
-        part = packed_w[offset : offset + n_words].float().numpy()
-        offset += n_words
-        if k == 4:
-            # wgmma's B tile, K-major without swizzle (PTX ISA, wgmma shared-memory layouts): core
-            # matrix (output block b, k half h) is 8 rows (outputs 8b + r) of 8 k (16 bytes), at
-            # (2b + h) * 128 bytes; the kernel's descriptor says 128 bytes along K, 256 along N.
-            # The last conv runs in passes of at most 64 outputs (wgmma's N), each pass's tiles
-            # packed whole before the next's
-            n0 = 0
-            for nn in [64] * (cout // 64) + [cout % 64] * (cout % 64 > 0):
-                size = 9 * cin * nn
-                got = part[n0 * 9 * cin: n0 * 9 * cin + size].reshape(cin // 16, 9, nn // 8, 2, 8, 8)
-                want = np.empty_like(got)
-                for c in range(cin // 16):
-                    for tap in range(9):
-                        for b in range(nn // 8):
-                            for h in range(2):
-                                for r in range(8):
-                                    want[c, tap, b, h, r] = wb[n0 + 8 * b + r, 16 * c + 8 * h: 16 * c + 8 * h + 8,
-                                                               tap // 3, tap % 3]
-                np.testing.assert_array_equal(got, want)
-                n0 += nn
-            assert n0 == cout
-            continue
-        got = part.reshape(cin // 16, 9, cout // 16, 32, 4, 2)
-        want = np.empty_like(got)
-        for c in range(cin // 16):
-            for tap in range(9):
-                for q in range(cout // 16):
-                    for lane in range(32):
-                        g, t = divmod(lane, 4)
-                        for j in range(2):
-                            for r in range(2):
-                                for e in range(2):
-                                    want[c, tap, q, lane, 2 * j + r, e] = wb[
-                                        16 * q + 8 * j + g, 16 * c + 2 * t + 8 * r + e, tap // 3, tap % 3]
-        np.testing.assert_array_equal(got, want)
-    assert offset == packed_w.numel()
+        assert (hits[k] == 1).all(), f"conv{k + 1}: an element is missing or streamed twice"
+        np.testing.assert_array_equal(convs[k], wt.to(torch.bfloat16).float().numpy())
 
 
 def test_bf16_packing_is_the_mma_b_fragment_order(rng):
-    """For the tensor-core chain engine (``conv_chain``): each conv's weights,
-    one after the other, k-step (ci group c, tap) after k-step, so that a ring
-    slot holds whole input-channel groups with all their taps. A growth
-    conv's k-step is [16-output group q][lane l][register]: lane l holds the
-    b0/b1 registers of mma.m16n8k16's B fragment for two n-tiles, register r
-    of n-tile j being {B[2t + 8r][g], B[2t + 8r + 1][g]} with g = l // 4, t =
-    l % 4 and B[k][n] = W[16q + 8j + n][16c + k] at that tap (PTX ISA,
-    m16n8k16 fragments). The last conv's k-step is wgmma's B tile (see
-    ``_assert_chain_order``). At nf=16 and at the flagship nf=64 (gc=16)."""
+    """For the tensor-core chain engine (``conv_chain``): growth step after
+    growth step, source-major at depth 2 (gc=16), then the last conv, k-step
+    (channel group c, tap) after k-step, so that a ring slot holds whole
+    channel groups with all their taps. A growth step's k-step is [pending
+    conv p][16-output group q][lane l][register]: lane l holds the b0/b1
+    registers of mma.m16n8k16's B fragment for two n-tiles, register r of
+    n-tile j being {B[2t + 8r][g], B[2t + 8r + 1][g]} with g = l // 4, t = l %
+    4 and B[k][n] = W_p[16q + 8j + n][16c + k] at that tap (PTX ISA, m16n8k16
+    fragments). x's four groups feed growth convs 1 and 2 (32 columns, two
+    groups a slot). The last conv's k-step is wgmma's B tile (see
+    ``_unpack_chain``). At nf=16 and at the flagship nf=64 (gc=16)."""
     for nf in (16, 64):
         _, _, ws = _case(rng, 1, 4, 4, nf, 16)
         weights = _torch_args(np.zeros((1, 1, 1, nf), np.float32), np.zeros((1, 1, 1, nf), np.float32), ws)[2]
         packed = rdb.pack_rdb_weights(weights, torch.bfloat16)
         assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32
-        _assert_chain_order(weights, packed.w)
+        assert rdb._chain_depth(nf, 16) == 2
+        _assert_chain_order(weights, packed.w, depth=2)
+        # the first k-step is x's first channel group at the first tap, for growth convs 1 and 2 at once
+        first = packed.w[:9 * 16 * 32].float().view(9, 2, 32, 4, 2)
+        for conv in range(2):
+            assert torch.equal(first[4, conv, 0, 0], weights[conv][0][0, :2, 1, 1].to(torch.bfloat16).float())
     with pytest.raises(ValueError, match="16"):
         rdb.pack_rdb_weights(_torch_args(np.zeros((1, 1, 1, 16), np.float32),
                                          np.zeros((1, 1, 1, 16), np.float32), _case(rng, 1, 4, 4, 16, 8)[2])[2],
@@ -202,7 +234,8 @@ def test_bf16_packing_is_the_mma_b_fragment_order(rng):
 
 def test_b2_bf16_packing_is_the_transposed_chain_in_chain_order(rng):
     """Kernel B2 packs its input-gradient chain with one gather from the
-    forward weights: transposed_chain's weights, in the chain engine's order."""
+    forward weights: transposed_chain's weights, in the chain engine's
+    source-major order (depth 2 at gc=16), as kernel A's."""
     _, _, ws = _case(rng, 1, 4, 4, 64, 16)
     weights = _torch_args(np.zeros((1, 1, 1, 64), np.float32), np.zeros((1, 1, 1, 64), np.float32), ws)[2]
     got = rdb._pack_chain(weights, transposed=True)
@@ -218,14 +251,19 @@ def test_bf16_tile_fits_the_buffer_and_the_weight_ring():
 
 
 def test_bf16_packing_at_gc32_is_the_chain_order_forward_and_transposed(rng):
-    """At the reference defaults (nf=64, gc=32) a growth conv's k-step holds
-    two 16-output blocks, [q][lane][register] as above; conv5 reads 12 input
-    groups. Both the forward chain and kernel B2's transposed chain."""
+    """At the reference defaults (nf=64, gc=32) the growth depth is 2: x's
+    groups feed convs 1 and 2 (two 16-output blocks each, 64 columns), h_1
+    conv 2, then x, h_1 and h_2 feed convs 3 and 4 and h_3 conv 4; conv5
+    reads 12 input groups. Both the forward chain and kernel B2's transposed
+    chain."""
     _, _, ws = _case(rng, 1, 4, 4, 64, 32)
     weights = _torch_args(np.zeros((1, 1, 1, 64), np.float32), np.zeros((1, 1, 1, 64), np.float32), ws)[2]
     packed = rdb.pack_rdb_weights(weights, torch.bfloat16)
     assert (packed.nf, packed.gc) == (64, 32) and packed.w.numel() == 239616
-    _assert_chain_order(weights, packed.w)
+    assert rdb._chain_depth(64, 32) == 2
+    assert [(f, n, fed) for f, n, fed in rdb.growth_steps(64, 32, 2)] == [
+        (0, 64, (0, 1)), (64, 32, (1,)), (0, 128, (2, 3)), (128, 32, (3,))]
+    _assert_chain_order(weights, packed.w, depth=2)
     _assert_chain_order(rdb.transposed_chain(weights), rdb._pack_chain(weights, transposed=True))
 
 
@@ -288,6 +326,8 @@ def test_bf16_chain_plan_at_other_widths(nf, gc):
 
     assert smem((th, tw)) <= rdb._SMEM_LIMIT
     assert (th + 8) * (tw + 8) <= 16 * 8 * 5 and th * tw <= 16 * 8 * 2
+    # the growth sums' registers: at most 5, 3, 2 M-tiles of region 0 a warp at gc = 16, 32, 48 (``kMaxMT``)
+    assert (th + 8) * (tw + 8) <= 16 * 8 * {16: 5, 32: 3, 48: 2}[gc]
     tiles = rdb._TILES[torch.bfloat16]
     assert all(smem(t) > rdb._SMEM_LIMIT for t in tiles[:tiles.index((th, tw))])
     if (nf, gc) in ((112, 48), (128, 48)):
@@ -297,15 +337,60 @@ def test_bf16_chain_plan_at_other_widths(nf, gc):
 @pytest.mark.parametrize("nf,gc", [(32, 16), (48, 32), (96, 16), (128, 32)], ids=["nf32", "nf48", "nf96", "nf128"])
 def test_bf16_packing_at_other_widths_is_the_chain_order(rng, nf, gc):
     """The forward chain and kernel B2's transposed chain at widths other
-    than 64: growth convs in the mma.sync B-fragment order, the last conv as
-    wgmma B tiles of each pass (two passes at nf=96 and 128: outputs 0-63,
-    then the rest), against the layout written out element by element."""
+    than 64: growth steps source-major in the mma.sync B-fragment order, the
+    last conv as wgmma B tiles of each pass (two passes at nf=96 and 128:
+    outputs 0-63, then the rest), decoded chunk by chunk."""
     _, _, ws = _case(rng, 1, 4, 4, nf, gc)
     weights = _torch_args(np.zeros((1, 1, 1, nf), np.float32), np.zeros((1, 1, 1, nf), np.float32), ws)[2]
     packed = rdb.pack_rdb_weights(weights, torch.bfloat16)
     assert packed.w.numel() == 9 * (sum((nf + k * gc) * gc for k in range(4)) + (nf + 4 * gc) * nf)
     _assert_chain_order(weights, packed.w)
     _assert_chain_order(rdb.transposed_chain(weights), rdb._pack_chain(weights, transposed=True))
+
+
+@pytest.mark.parametrize("nf,gc", WIDTHS)
+def test_bf16_source_major_packing_at_every_width(rng, nf, gc):
+    """At every width the chain takes besides nf=64 (nf 16-128 x gc 16, 32,
+    48), forward and transposed: the stream at the wrapper's depth (2 at
+    gc=16 and 32, 1 at gc=48) unpacks, chunk by chunk, back to the OIHW
+    weights, each element once; and its growth steps are the source-major
+    ones, x's channel groups feeding every conv of the first group."""
+    _, _, ws = _case(rng, 1, 4, 4, nf, gc)
+    weights = _torch_args(np.zeros((1, 1, 1, nf), np.float32), np.zeros((1, 1, 1, nf), np.float32), ws)[2]
+    depth = rdb._chain_depth(nf, gc)
+    assert depth == {16: 2, 32: 2, 48: 1}[gc]
+    steps = rdb.growth_steps(nf, gc, depth)
+    assert steps[0] == (0, nf, tuple(range(depth)))
+    assert [fed[0] for _, _, fed in steps] == [0, 1, 2, 3]  # step c completes conv c
+    _assert_chain_order(weights, rdb.pack_rdb_weights(weights, torch.bfloat16).w, depth)
+    _assert_chain_order(rdb.transposed_chain(weights), rdb._pack_chain(weights, transposed=True), depth)
+
+
+def test_growth_depth_by_width_and_tile():
+    """The wrapper picks how many growth convs one read of a buffer slice
+    feeds: the most of 4, 2, 1 whose k-step (depth x gc outputs) fits the ring
+    slot's 64 columns and whose pending sums (depth x gc / 2 f32 registers a
+    thread per M-tile a warp holds in region 0: 5, 3, 2 at gc = 16, 32, 48)
+    fit in 96. The presets' widths take the source-major step: nf=64 at gc=16
+    (flagship, GAN, sweep; 16 x 16 tiles, 36 M-tiles of region 0, 5 a warp)
+    and at gc=32 (the paper's; 8 x 16, 24 M-tiles, 3 a warp), both at depth 2
+    (depth 4 at gc=16 would hold 160 registers of sums). The per-conv step
+    (depth 1) is left only at gc=48, every nf (8 x 8, and 4 x 8 at nf=112
+    and 128), where two convs' 96 columns do not fit a slot. Every tile the
+    wrapper picks holds at most the M-tiles the depth was sized for."""
+    assert (rdb._tile(64, 16, torch.bfloat16), rdb._chain_depth(64, 16)) == ((16, 16), 2)
+    assert (rdb._tile(64, 32, torch.bfloat16), rdb._chain_depth(64, 32)) == ((8, 16), 2)
+    assert 4 * 8 * 5 > rdb._PENDING_REGS >= 2 * 8 * 5 and 2 * 16 * 3 <= rdb._PENDING_REGS
+    fallback = []
+    for nf in range(16, 129, 16):
+        for gc in (16, 32, 48):
+            th, tw = rdb._tile(nf, gc, torch.bfloat16)
+            depth = rdb._chain_depth(nf, gc)
+            assert depth == rdb.growth_depth(gc) and depth * gc <= 64
+            assert -(-(th + 8) * (tw + 8) // 16) <= 8 * rdb._GROWTH_MT[gc]
+            if depth == 1:
+                fallback.append((nf, gc))
+    assert fallback == [(nf, 48) for nf in range(16, 129, 16)]
 
 
 @pytest.mark.parametrize("nf,gc", [(16, 16), (96, 32), (128, 48)], ids=["nf16", "nf96", "nf128-gc48"])

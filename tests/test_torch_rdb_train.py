@@ -238,10 +238,11 @@ def test_wrappers_on_cpu_count_no_launch(rng):
     x, _, g, ws = _case(rng)
     weights = _torch_weights(ws)
     for f in (rdb.fused_rdb_fwd_save, rdb.fused_rdb_bwd):
-        f.launches = 0
+        f.launches = f.source_major = 0
     out, feat = rdb.fused_rdb_fwd_save(_nchw(x), weights)
     rdb.fused_rdb_bwd(feat, _nchw(g), weights, 0.2, 1.0)
     assert rdb.fused_rdb_fwd_save.launches == 0 and rdb.fused_rdb_bwd.launches == 0
+    assert rdb.fused_rdb_fwd_save.source_major == 0 and rdb.fused_rdb_bwd.source_major == 0
 
 
 # Every function of the port that launches a CUDA kernel (it counts
