@@ -6,9 +6,19 @@ The counterpart of ``climsr_tpu.models.rfb_esrgan`` (reference
 
 - ``ReceptiveFieldBlock``: a 1x1 shortcut and 4 inception branches (1x1,
   (1,3), (3,1), dilation 3 and 5), a 1x1 merge, ``out*0.2 + shortcut``,
-  optional LeakyReLU; bias-free, kaiming-normal x0.1 init,
+  optional LeakyReLU; bias-free, kaiming-normal x0.1 init. Each call runs in
+  a span ``climsr.rfb.block`` keyed by the block's index in the generator
+  (the trunk's in order, then the middle ``RFB``, then the upsampling's) and
+  adds one to the counter ``climsr.rfb.calls`` (``utils/profiling.py``; off
+  by default),
 - ``ReceptiveFieldDenseBlock`` (5 RFBs, dense concat) and its residual wrapper,
-- the bias-free kaiming x0.1 ``RFBResidualDenseBlock`` and its RRDB,
+- the bias-free kaiming x0.1 ``RFBResidualDenseBlock`` and its RRDB. The RDB
+  runs as one call of :func:`climsr_tpu_torch.ops.rdb.fused_rdb` with no
+  biases, as ESRGAN's does with its own (kernel A on the card without a
+  gradient, :class:`~climsr_tpu_torch.ops.rdb.FusedRDB`'s kernels B1 and B2
+  with one, the plain version on the CPU); the RRDB's third RDB folds the
+  outer residual into the kernel's write (``x0``). The trunk runs in
+  ``torch.channels_last``, the layout the kernels take,
 - generator: conv1 -> 16 RRDB (Trunk_A) -> 8 RRFDB (Trunk_RFB) -> skip add ->
   RFB -> [nearest x2, RFB, conv 256, LeakyReLU, pixel-shuffle 2, RFB] per
   factor 4 -> conv3 + LeakyReLU -> conv4 + tanh. Single input, no fusion head.
@@ -20,10 +30,10 @@ The counterpart of ``climsr_tpu.models.rfb_esrgan`` (reference
   BCE-with-logits. The pooled map is flattened in NCHW order, as torch's
   ``Linear`` weights expect.
 
-No TPU kernel runs here. The RRDB trunk's dense blocks are bias-free and the
-JAX generator runs them through plain convs, not the Pallas trunk; so the
-port runs them through library convs too (kernels A, B1, B2 take a bias per
-conv). ``remat`` is not ported (the registry drops it).
+The JAX generator runs the bias-free dense blocks through plain convs, not
+the Pallas trunk; the port runs them on the RDB kernels with zero biases,
+which computes the same function. The RFBs, the upsampling and the tail stay
+on library convs. ``remat`` is not ported (the registry drops it).
 
 ``state_dict`` keys are the reference's (``climsr_tpu/interop/torch_import.py:178-226``):
 ``conv1``, ``Trunk_A.{i}.RDB{j}.conv{1..4}.0`` and ``.conv5``,
@@ -34,7 +44,7 @@ discriminator's ``features.{0,3i-1,3i}`` and ``fc.{0,2}``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -48,6 +58,9 @@ from climsr_tpu_torch.models.common import (
     kaiming_scaled_init_,
     leaky_relu,
 )
+from climsr_tpu_torch.models.esrgan import ResidualDenseBlock
+from climsr_tpu_torch.ops.rdb import fused_rdb
+from climsr_tpu_torch.utils.profiling import count, span
 
 
 def _conv(cin: int, cout: int, kernel_size=3, padding=None, dilation: int = 1) -> TorchConv:
@@ -55,6 +68,8 @@ def _conv(cin: int, cout: int, kernel_size=3, padding=None, dilation: int = 1) -
 
 
 class ReceptiveFieldBlock(nn.Module):
+    block: Optional[int] = None  # the RFB's index in its generator, the key of its span
+
     def __init__(self, in_channels: int, out_channels: int, scale_ratio: float = 0.2, non_linearity: bool = True):
         super().__init__()
         c = in_channels // 4
@@ -76,9 +91,11 @@ class ReceptiveFieldBlock(nn.Module):
         self.conv1x1 = _conv(4 * c, out_channels, 1, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.cat([self.branch1(x), self.branch2(x), self.branch3(x), self.branch4(x)], dim=1)
-        out = self.conv1x1(out) * self.scale_ratio + self.shortcut(x)
-        return leaky_relu(out) if self.non_linearity else out
+        count("climsr.rfb.calls")
+        with span("climsr.rfb.block", key=self.block):
+            out = torch.cat([self.branch1(x), self.branch2(x), self.branch3(x), self.branch4(x)], dim=1)
+            out = self.conv1x1(out) * self.scale_ratio + self.shortcut(x)
+            return leaky_relu(out) if self.non_linearity else out
 
 
 class ReceptiveFieldDenseBlock(nn.Module):
@@ -110,33 +127,36 @@ class ResidualOfReceptiveFieldDenseBlock(nn.Module):
 
 
 class RFBResidualDenseBlock(nn.Module):
-    """The bias-free RDB: conv1..conv4 (each ``Sequential(conv, LeakyReLU)``) and conv5."""
+    """The bias-free RDB: conv1..conv4 (each ``Sequential(conv, LeakyReLU)``)
+    and conv5, residual scale 0.2: one :func:`fused_rdb` call with no biases."""
 
-    def __init__(self, in_channels: int = 64, growth_channels: int = 32, scale_ratio: float = 0.2):
+    def __init__(self, in_channels: int = 64, growth_channels: int = 32):
         super().__init__()
         ic, gc = in_channels, growth_channels
-        self.scale_ratio = scale_ratio
         for k in range(1, 5):
             setattr(self, f"conv{k}", nn.Sequential(_conv(ic + (k - 1) * gc, gc), nn.LeakyReLU(0.2)))
         self.conv5 = _conv(ic + 4 * gc, ic)
+        self._packed = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feats = [x]
-        for k in range(1, 5):
-            feats.append(getattr(self, f"conv{k}")(torch.cat(feats, dim=1)))
-        return self.conv5(torch.cat(feats, dim=1)) * self.scale_ratio + x
+    def weights(self) -> List[Tuple[torch.Tensor, None]]:
+        return [(getattr(self, f"conv{k}")[0].weight, None) for k in range(1, 5)] + [(self.conv5.weight, None)]
+
+    packed_weights = ResidualDenseBlock.packed_weights  # cached by (data pointer, _version) as ESRGAN's
+
+    def forward(self, x: torch.Tensor, outer_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        packed = self.packed_weights(x.dtype) if x.is_cuda else None
+        return fused_rdb(x, self.weights(), x0=outer_residual, packed=packed)
 
 
 class RFBResidualInResidualDenseBlock(nn.Module):
-    def __init__(self, in_channels: int = 64, growth_channels: int = 32, scale_ratio: float = 0.2):
+    def __init__(self, in_channels: int = 64, growth_channels: int = 32):
         super().__init__()
-        self.scale_ratio = scale_ratio
-        self.RDB1 = RFBResidualDenseBlock(in_channels, growth_channels, scale_ratio)
-        self.RDB2 = RFBResidualDenseBlock(in_channels, growth_channels, scale_ratio)
-        self.RDB3 = RFBResidualDenseBlock(in_channels, growth_channels, scale_ratio)
+        self.RDB1 = RFBResidualDenseBlock(in_channels, growth_channels)
+        self.RDB2 = RFBResidualDenseBlock(in_channels, growth_channels)
+        self.RDB3 = RFBResidualDenseBlock(in_channels, growth_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.RDB3(self.RDB2(self.RDB1(x))) * self.scale_ratio + x
+        return self.RDB3(self.RDB2(self.RDB1(x)), outer_residual=x)  # x + 0.2 * RDB3(out), in one write
 
 
 class RFBESRGANGenerator(nn.Module):
@@ -156,7 +176,7 @@ class RFBESRGANGenerator(nn.Module):
             raise NotImplementedError(
                 f"RFB-ESRGAN upsamples in x4 blocks; scaling_factor={scaling_factor} unsupported")
         self.conv1 = _conv(in_channels, 64)
-        self.Trunk_A = nn.Sequential(*(RFBResidualInResidualDenseBlock(64, 32, 0.2) for _ in range(num_rrdb_blocks)))
+        self.Trunk_A = nn.Sequential(*(RFBResidualInResidualDenseBlock(64, 32) for _ in range(num_rrdb_blocks)))
         self.Trunk_RFB = nn.Sequential(
             *(ResidualOfReceptiveFieldDenseBlock(64, 32, 0.2) for _ in range(num_rrfdb_blocks)))
         self.RFB = ReceptiveFieldBlock(64, 64, non_linearity=False)
@@ -167,6 +187,8 @@ class RFBESRGANGenerator(nn.Module):
         self.upsampling = nn.Sequential(*layers)
         self.conv3 = nn.Sequential(_conv(64, 64), nn.LeakyReLU(0.2))
         self.conv4 = nn.Sequential(_conv(64, out_channels), nn.Tanh())
+        for i, rfb in enumerate(m for m in self.modules() if isinstance(m, ReceptiveFieldBlock)):
+            rfb.block = i
         if generator is not None:
             init_torch_default_(self, generator)
             for m in self.modules():
@@ -175,7 +197,7 @@ class RFBESRGANGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, in_channels, h, w) -> (N, out_channels, h*s, w*s), in (-1, 1)."""
-        out1 = self.conv1(x)
+        out1 = self.conv1(x).contiguous(memory_format=torch.channels_last)
         out = self.RFB(out1 + self.Trunk_RFB(self.Trunk_A(out1)))
         return self.conv4(self.conv3(self.upsampling(out)))
 

@@ -5,6 +5,8 @@ One RDB is four 3x3 growth convs (cin = nf + k*gc -> gc, bias, LeakyReLU 0.2)
 over the growing concatenation ``[x, h_1, ..., h_k]``, then conv5 (nf + 4*gc ->
 nf) and the residual ``x + 0.2 * conv5``. With ``x0`` the enclosing RRDB's
 residual is folded into the same write: ``x0 + 0.2 * (x + 0.2 * conv5)``.
+A bias of None is a conv without one (RFB-ESRGAN's bias-free RDB): the kernels
+run it on zero biases, and no gradient is returned for it.
 
 - :func:`rdb_reference` is the plain PyTorch version (``torch.nn.functional``
   convs and concatenations). It runs every tensor on the CPU and is the
@@ -76,7 +78,7 @@ import torch.nn.functional as F
 from climsr_tpu_torch.ops import cuda_lib
 from climsr_tpu_torch.utils import profiling
 
-Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]  # five (OIHW weight, bias) pairs
+Weights = Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]  # five (OIHW weight, bias or None) pairs
 
 _SOURCES = ("rdb_fwd.cu",)  # kernels A and B1
 _BWD_SOURCES = ("rdb_bwd.cu",)  # kernel B2
@@ -110,21 +112,23 @@ _TILES = {
 def rdb_reference(x: torch.Tensor, weights: Weights, x0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain RDB forward in x's dtype; the same semantics as the kernel."""
 
-    def conv(v, wb):
-        return F.conv2d(v, wb[0].to(v.dtype), wb[1].to(v.dtype), padding=1)
-
     feats = [x]
     for k in range(4):
-        feats.append(F.leaky_relu(conv(torch.cat(feats, dim=1), weights[k]), 0.2))
-    out = conv(torch.cat(feats, dim=1), weights[4]) * 0.2 + x
+        feats.append(F.leaky_relu(_conv3(torch.cat(feats, dim=1), weights[k]), 0.2))
+    out = _conv3(torch.cat(feats, dim=1), weights[4]) * 0.2 + x
     if x0 is not None:
         out = out * 0.2 + x0
     return out
 
 
+def _conv3(v: torch.Tensor, wb) -> torch.Tensor:
+    """A 3x3 conv of the block in v's dtype (no bias where it is None)."""
+    return F.conv2d(v, wb[0].to(v.dtype), None if wb[1] is None else wb[1].to(v.dtype), padding=1)
+
+
 class PackedWeights(NamedTuple):
     """The five convs' weights packed for the kernel of one dtype, back to
-    back, and the biases ``[b1..b4, b5]`` in float32.
+    back, and the biases ``[b1..b4, b5]`` in float32 (zeros for a bias of None).
 
     - float32: tap-major per conv, ``[3*ky + kx][cin][cout]`` (HWIO).
     - bfloat16: the chain engine's order (:func:`chain_index`): B fragments
@@ -281,15 +285,17 @@ def _widths(weights: Weights) -> Tuple[int, int]:
     gc, nf = weights[0][0].shape[0], weights[4][0].shape[0]
     for k, (wt, bs) in enumerate(weights):
         want = _conv_shapes(nf, gc)[k]
-        if tuple(wt.shape) != want or tuple(bs.shape) != want[:1]:
-            raise ValueError(f"conv{k + 1}: weight {tuple(wt.shape)} / bias {tuple(bs.shape)}, expected {want}")
+        if tuple(wt.shape) != want or (bs is not None and tuple(bs.shape) != want[:1]):
+            got = None if bs is None else tuple(bs.shape)
+            raise ValueError(f"conv{k + 1}: weight {tuple(wt.shape)} / bias {got}, expected {want}")
     return nf, gc
 
 
 def pack_rdb_weights(weights: Weights, dtype: torch.dtype = torch.float32) -> PackedWeights:
     """Pack the (OIHW weight, bias) pairs for the kernel of ``dtype``, on their device."""
     nf, gc = _widths(weights)
-    b = torch.cat([bs.detach().float().reshape(-1) for _, bs in weights]).contiguous()
+    b = torch.cat([torch.zeros(wt.shape[0], dtype=torch.float32, device=wt.device) if bs is None
+                   else bs.detach().float().reshape(-1) for wt, bs in weights]).contiguous()
     if dtype == torch.float32:
         w = torch.cat([wt.detach().float().permute(2, 3, 1, 0).reshape(-1) for wt, _ in weights])
     elif dtype == torch.bfloat16:
@@ -452,15 +458,11 @@ def rdb_fwd_save_reference(
     x: torch.Tensor, weights: Weights, x0: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward that also returns ``feat = [x, h_1 .. h_4]`` in x's dtype."""
-
-    def conv(v, wb):
-        return F.conv2d(v, wb[0].to(v.dtype), wb[1].to(v.dtype), padding=1)
-
     feats = [x]
     for k in range(4):
-        feats.append(F.leaky_relu(conv(torch.cat(feats, dim=1), weights[k]), 0.2))
+        feats.append(F.leaky_relu(_conv3(torch.cat(feats, dim=1), weights[k]), 0.2))
     feat = torch.cat(feats, dim=1)
-    out = conv(feat, weights[4]) * 0.2 + x
+    out = _conv3(feat, weights[4]) * 0.2 + x
     if x0 is not None:
         out = out * 0.2 + x0
     return out, feat.contiguous(memory_format=torch.channels_last)
@@ -475,7 +477,8 @@ def rdb_bwd_reference(
     version to hold the f32 kernel's pixel-wide dW sums against), the
     pre-activation gradients ``dz`` rounded to g's dtype before each conv
     reads them, slopes from sign(h_k). Returns ``(dx, [dW_1 .. dW_5], [db_1
-    .. db_5])``; dx in g's dtype, the rest f32 (f64) (OIHW weights)."""
+    .. db_5])``; dx in g's dtype, the rest f32 (f64) (OIHW weights); db_k is
+    None where conv k has no bias."""
     dt = g.dtype
     acc = torch.float64 if dt == torch.float64 else torch.float32
     nf, gc = g.shape[1], weights[0][0].shape[0]
@@ -487,11 +490,13 @@ def rdb_bwd_reference(
     dz = (g.to(acc) * gy_scale).to(dt).to(acc)
     dfeat = grad_in(f.shape, ws[4], dz, padding=1)
     dws[4] = grad_w(f, ws[4].shape, dz, padding=1)
-    dbs[4] = gy_scale * g.to(acc).sum((0, 2, 3))
+    if weights[4][1] is not None:
+        dbs[4] = gy_scale * g.to(acc).sum((0, 2, 3))
     for k in (3, 2, 1, 0):
         lo = nf + k * gc  # h_{k+1}'s channels; also conv k+1's cin
         da = dfeat[:, lo:lo + gc] * torch.where(f[:, lo:lo + gc] > 0, 1.0, 0.2)
-        dbs[k] = da.sum((0, 2, 3))
+        if weights[k][1] is not None:
+            dbs[k] = da.sum((0, 2, 3))
         dz = da.to(dt).to(acc)
         dfeat[:, :lo] += grad_in((f.shape[0], lo) + tuple(f.shape[2:]), ws[k], dz, padding=1)
         dws[k] = grad_w(f[:, :lo], ws[k].shape, dz, padding=1)
@@ -608,7 +613,9 @@ def fused_rdb_bwd(
     :func:`rdb_bwd_reference` returns them. ``weights`` are in g's dtype. On a
     CUDA tensor it launches the kernel (three launches on the current stream,
     counted as one) or raises; on a CPU tensor it runs the plain version. db_5
-    is ``gy * sum(g)`` in f32 outside the kernel, as in ``rdb.py:566``."""
+    is ``gy * sum(g)`` in f32 outside the kernel, as in ``rdb.py:566``; db_k
+    is None, and that sum is skipped, where conv k has no bias (the kernel
+    still writes the growth convs' sums, which are dropped)."""
     if g.device.type == "cpu":
         return rdb_bwd_reference(feat, g, weights, gy_scale, gx_scale)
     if g.device.type != "cuda":
@@ -653,7 +660,8 @@ def fused_rdb_bwd(
     if depth > 1:
         _count_source_major(fused_rdb_bwd, "B2")
     dws = [part.view(wt.shape) for part, (wt, _) in zip(torch.split(dw, sizes), weights)]
-    dbs = list(torch.split(db, gc)) + [gy_scale * g.sum((0, 2, 3), dtype=torch.float32)]
+    db5 = None if weights[4][1] is None else gy_scale * g.sum((0, 2, 3), dtype=torch.float32)
+    dbs = [part if bs is not None else None for part, (_, bs) in zip(list(torch.split(db, gc)) + [db5], weights)]
     return dx, dws, dbs
 
 
@@ -670,7 +678,8 @@ class FusedRDB(torch.autograd.Function):
     computes in x's dtype (the parameters are rounded to it at use, as flax
     casts ``kernel.astype(dtype)``), and the parameter gradients come back
     rounded to x's dtype and then in the parameters' own, as JAX's do through
-    that cast. ``packed`` (or None) is the forward weights' packing for x's
+    that cast. A bias may be None (a bias-free conv: no gradient for it).
+    ``packed`` (or None) is the forward weights' packing for x's
     dtype. Forward: :func:`fused_rdb_fwd_save`; backward:
     :func:`fused_rdb_bwd` with scales (0.2, 1), or (0.04, 0.2) and dx0 = g
     when the enclosing residual x0 is folded in.
@@ -689,12 +698,12 @@ class FusedRDB(torch.autograd.Function):
         feat, *params = ctx.saved_tensors
         dt = feat.dtype
         g = g.to(dt).contiguous(memory_format=torch.channels_last)
-        weights = [(params[2 * k].to(dt), params[2 * k + 1].to(dt)) for k in range(5)]
+        weights = [(w.to(dt), None if b is None else b.to(dt)) for w, b in zip(params[0::2], params[1::2])]
         gy, gx = (0.04, 0.2) if ctx.with_x0 else (0.2, 1.0)
         dx, dws, dbs = fused_rdb_bwd(feat, g, weights, gy, gx)
         grads = []
-        for k in range(5):
-            grads += [dws[k].to(dt).to(params[2 * k].dtype), dbs[k].to(dt).to(params[2 * k + 1].dtype)]
+        for k, (w, b) in enumerate(zip(params[0::2], params[1::2])):
+            grads += [dws[k].to(dt).to(w.dtype), None if b is None else dbs[k].to(dt).to(b.dtype)]
         return (dx, g if ctx.with_x0 else None, None, *grads)
 
 

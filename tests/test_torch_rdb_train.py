@@ -352,18 +352,32 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gc", [16, 32])
+@pytest.mark.parametrize("gc,shape,biased", [(16, (2, 29, 45), True), (32, (2, 29, 45), True),
+                                             (32, (192, 32, 32), False)],
+                         ids=["gc16", "gc32", "gc32-bias-free-192x32x32"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_cuda_kernels_b1_b2_match_plain_versions(rng, cuda_device, dtype, tol, gc):
+def test_cuda_kernels_b1_b2_match_plain_versions(rng, cuda_device, dtype, tol, gc, shape, biased):
     """A ragged image with tiles across every border, both scale pairs, at
-    the flagship and the reference-default growth widths; tolerances as in chip_smoke.py."""
-    x, x0, g, ws = _case(rng, 2, 29, 45, 64, gc)
+    the flagship and the reference-default growth widths, and RFB-ESRGAN's
+    bias-free block (no biases: zeros packed, no bias gradient) at its
+    training shape; tolerances as in chip_smoke.py, whose f32 plain versions
+    run in f64 (B2's f32 dW sums drift with the batch)."""
+    x, x0, g, ws = _case(rng, *shape, 64, gc)
     tx, tx0, tg = (_nchw(a).to(cuda_device, dtype).contiguous(memory_format=torch.channels_last) for a in (x, x0, g))
-    weights = [(a.to(cuda_device, dtype), b.to(cuda_device, dtype)) for a, b in _torch_weights(ws)]
+    weights = [(a.to(cuda_device, dtype), b.to(cuda_device, dtype) if biased else None) for a, b in _torch_weights(ws)]
+    plain = torch.float64 if dtype == torch.float32 else dtype
+
+    def exact(t):
+        return None if t is None else t.to(plain)
+
     for res, (gy, gx) in ((None, (0.2, 1.0)), (tx0, (0.04, 0.2))):
         out, feat = rdb.fused_rdb_fwd_save(tx, weights, res)
-        ref_out, ref_feat = rdb.rdb_fwd_save_reference(tx, weights, res)
-        got = [out, feat, *(t for part in rdb.fused_rdb_bwd(feat, tg, weights, gy, gx)[1:] for t in part)]
-        want = [ref_out, ref_feat, *(t for part in rdb.rdb_bwd_reference(feat, tg, weights, gy, gx)[1:] for t in part)]
+        _, dws, dbs = rdb.fused_rdb_bwd(feat, tg, weights, gy, gx)
+        pw = [(exact(a), exact(b)) for a, b in weights]
+        ref_out, ref_feat = rdb.rdb_fwd_save_reference(exact(tx), pw, exact(res))
+        _, ref_dws, ref_dbs = rdb.rdb_bwd_reference(exact(feat), exact(tg), pw, gy, gx)
+        assert all(b is None for b in dbs + ref_dbs) if not biased else None not in dbs
+        got = [out, feat, *dws, *(b for b in dbs if b is not None)]
+        want = [ref_out, ref_feat, *ref_dws, *(b for b in ref_dbs if b is not None)]
         for a, b in zip(got, want):
-            assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+            assert (a.double() - b.double()).abs().max().item() <= tol * b.double().abs().max().item()
